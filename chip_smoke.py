@@ -23,7 +23,31 @@ Phases (each raises on any failure, so the exit code is not 0):
   4. the main path timed: two run_step() calls (one re-rooting), phase
      times per superstep, supersteps per second, and each kernel's time
      per launch against its plain version and its bound, every timed
-     launch starting from the same arena state.
+     launch starting from the same arena state;
+  5. the flash-attention kernel against its plain version (the port's
+     naive_attention) on the card: tests/test_flash_kernel.py's SHAPES x
+     {f32, bf16} x window {None, 64}, the full-width head shapes of
+     llama3.2-1b, starcoder2-3b and gemma3-12b (window 1024 and none) at
+     B=1, S=2048, and the shapes the main paths give it at llama3.2-1b
+     width (phase 8's B=1 forwards of 2-43 tokens, phase 6's B=4 x 512,
+     the serve prefill's B=16 x 2048), within f32 2e-5 / bf16 2e-2; each
+     bf16 case is also held, within one bf16 rounding of the output, to
+     the plain version run in f32 on the same (bf16) inputs;
+  6. full-width llama3.2-1b in an f32 copy (TF32 off): the flash prefill
+     against the blockwise prefill on 4 prompts of 512 tokens (max |d
+     logits| <= 1e-3) and the same 32 greedy decode tokens; then the
+     published bf16 config, reported and not asserted;
+  7. the serve entry point (repro_torch.launch.serve) at llama3.2-1b,
+     bf16, --batch 16 --prefill 2048 --tokens 64, timed, with the flash
+     kernel's time per launch at that shape against its plain version
+     (blockwise), scaled_dot_product_attention and its bound;
+  8. the paper's MCTS with the LM as its simulation at full width, bf16:
+     TreeParallelMCTS(X=256, F=6, D=4, p=16) over LMTreeEnv and
+     LMContinuationBackend, two run_step() calls (the second re-rooting),
+     held superstep by superstep against the numpy oracle executor
+     replaying the recorded env steps and values; then where its
+     superstep goes (one expansion's forward, a decode step, the host
+     numpy work per vocabulary row), with device busy shares.
 
 It prints JSON lines; the line before the last is {"kernels": [...]} and
 the last is {"ok": true, "device": {...}}.  It imports nothing of the JAX
@@ -32,6 +56,7 @@ package.  With no CUDA device it exits 2 before printing any result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -46,6 +71,7 @@ ROOT = Path(__file__).resolve().parent
 DEV = "cuda"
 H100_HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12         # f32 outside the tensor cores
+H100_BF16_OPS_PER_S = 989e12       # bf16 dense on the tensor cores
 
 SWEEP = [   # tests/test_kernels_uct.py TREE_SWEEP
     dict(X=64, F=2, D=3),
@@ -137,7 +163,8 @@ def random_arena(cfg, G: int, rng, fill=None) -> dict:
 # ---------------------------------------------------------------------------
 
 # per kernel: mismatching elements and largest |kernel - plain| over phase 2
-AGREEMENT = {"uct_select": [0, 0], "uct_backup": [0, 0]}
+AGREEMENT = {"uct_select": [0, 0], "uct_backup": [0, 0],
+             "flash_attention": [0, 0.0]}
 
 
 def compare_trees(kernel: str, x, y, fields) -> int:
@@ -290,23 +317,29 @@ def cuda_time_ms(fn, reset, n: int, warm: int = 3) -> float:
 
 def device_ms(fn, reset, n: int, kernel: str):
     """Device time per launch of CUDA kernel `kernel` from torch.profiler
-    over n calls of fn, each after reset() (None when the trace holds no
-    device time)."""
+    over n calls of fn, each after reset() (None when two traces in a row
+    hold no device time for it: the profiler has dropped a session's
+    kernel records on this machine once)."""
     from torch.profiler import ProfilerActivity, profile
     reset()
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            reset()
-            fn()
-        torch.cuda.synchronize()
-    for ev in prof.key_averages():
-        if ev.key.startswith(kernel) and ev.count:
-            us = getattr(ev, "device_time_total", None)
-            if us is None:
-                us = getattr(ev, "cuda_time_total", 0.0)
-            return us / 1e3 / ev.count if us else None
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                reset()
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        for ev in events:
+            if kernel in ev.key and ev.count:
+                us = getattr(ev, "device_time_total", None)
+                if us is None:
+                    us = getattr(ev, "cuda_time_total", 0.0)
+                if us:
+                    return us / 1e3 / ev.count
+        emit(phase="profiler", kernel=kernel, found=False,
+             keys=[ev.key[:120] for ev in events][:12])
     return None
 
 
@@ -446,6 +479,428 @@ def kernel_rows(mc, main_launches) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the flash-attention kernel against its plain version
+# ---------------------------------------------------------------------------
+
+FLASH_SHAPES = [   # tests/test_flash_kernel.py SHAPES: B, Sq, Sk, H, Hkv, dh
+    (1, 128, 128, 2, 2, 32),
+    (2, 256, 256, 4, 2, 64),
+    (1, 200, 200, 2, 1, 16),
+    (2, 384, 384, 8, 8, 128),
+]
+FULL_WIDTH_HEADS = [   # arch, H, Hkv, head_dim, windows (configs/*.py)
+    ("llama3.2-1b", 32, 8, 64, (None,)),
+    ("starcoder2-3b", 24, 2, 128, (None,)),
+    ("gemma3-12b", 16, 8, 256, (1024, None)),
+]
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # test_flash_kernel.py:47
+# bf16 kernel against the plain version in f32 on the same bf16 inputs:
+# the kernel computes in f32 and rounds once, so the two differ by at most
+# half a bf16 ulp (<= 2^-8 |out|) on top of the f32 tolerance
+BF16_ROUND_TOL = (2e-5, 2e-5 + 2.0 ** -8)                  # atol, rtol
+LLAMA = "llama3.2-1b"
+SERVE_ARGV = ["--arch", LLAMA, "--batch", "16", "--prefill", "2048",
+              "--tokens", "64"]
+SERVE_HEADS = (16, 2048, 32, 8, 64)   # the serve prefill's B, S, H, Hkv, dh
+# the shapes the LM paths give the kernel (llama3.2-1b heads, causal, no
+# window): phase 8's B=1 forwards (a prompt of 1 + seed % 7 tokens plus up
+# to MAXLEN - horizon - 1 = 42 expansions; S < 64 leaves one partial query
+# tile), phase 6's prefill and the serve prefill
+MAIN_PATH_SHAPES = ([(1, S, S, 32, 8, 64) for S in (2, 3, 7, 43)]
+                    + [(4, 512, 512, 32, 8, 64),
+                       (16, 2048, 2048, 32, 8, 64)])
+
+
+def randn(gen, shape, dtype):
+    return torch.randn(shape, generator=gen, device=DEV).to(dtype)
+
+
+def phase_flash() -> int:
+    from repro_torch.kernels import flash_attention as FA
+
+    # the f32 references state their matmul precision: TF32 off
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    cases = [(s, w, None) for s in FLASH_SHAPES for w in (None, 64)]
+    cases += [((1, 2048, 2048, H, Hkv, dh), w, arch)
+              for arch, H, Hkv, dh, windows in FULL_WIDTH_HEADS for w in windows]
+    cases += [(s, None, LLAMA + " main path") for s in MAIN_PATH_SHAPES]
+    bad, worst, n = [], 0.0, 0
+    for shape, window, arch in cases:
+        B, Sq, Sk, H, Hkv, dh = shape
+        for dtype, tol in FLASH_TOL.items():
+            q = randn(gen, (B, Sq, H, dh), dtype)
+            k, v = (randn(gen, (B, Sk, Hkv, dh), dtype) for _ in range(2))
+            out = FA.flash_attention(q, k, v, causal=True, window=window).float()
+            ref = FA.flash_attention_plain(q, k, v, causal=True,
+                                           window=window).float()
+            torch.cuda.synchronize()
+            err = (out - ref).abs()
+            ok = bool((err <= tol + tol * ref.abs()).all())
+            e = float(err.max())
+            row = dict(max_abs_err=e, tol=tol)
+            del ref
+            if dtype == torch.bfloat16:
+                wide = FA.flash_attention_plain(q.float(), k.float(), v.float(),
+                                                causal=True, window=window)
+                atol, rtol = BF16_ROUND_TOL
+                werr = (out - wide).abs()
+                ok_w = bool((werr <= atol + rtol * wide.abs()).all())
+                # worst error as a share of its bound (<= 1 passes)
+                share = float((werr / (atol + rtol * wide.abs())).max())
+                row.update(max_abs_err_vs_f32=float(werr.max()),
+                           tol_share_vs_f32=share, rtol_vs_f32=rtol,
+                           ok_vs_f32=ok_w)
+                ok = ok and ok_w
+                del wide, werr
+            worst, n = max(worst, e), n + 1
+            emit(phase="flash", shape=list(shape), arch=arch, window=window,
+                 dtype=str(dtype).split(".")[-1], ok=ok, **row)
+            if not ok:
+                bad.append((shape, window, str(dtype)))
+            del q, k, v, out, err
+    AGREEMENT["flash_attention"] = [len(bad), worst]
+    if bad:
+        raise AssertionError(f"flash kernel outside tolerance in {bad}")
+    return n
+
+
+# ---------------------------------------------------------------------------
+# phase 6: full-width llama3.2-1b, flash prefill against the plain prefill
+# ---------------------------------------------------------------------------
+
+def greedy(cfg, params, tokens, impl, n_new):
+    """Prefill `tokens` with `impl`, then n_new greedy decode steps;
+    returns (prefill logits [B, V], tokens [B, n_new + 1])."""
+    from repro_torch.models import lm, steps
+
+    B, S = tokens.shape
+    caches = lm.init_caches(cfg, B, S + n_new + 8, DEV)
+    logits, caches = steps.make_prefill_step(cfg, impl=impl)(params, tokens, caches)
+    decode = steps.make_decode_step(cfg, impl=impl)
+    tok = torch.argmax(logits, -1)[:, None]
+    out = [tok]
+    positions = torch.arange(S, S + n_new, device=DEV)
+    for i in range(n_new):
+        lg, caches = decode(params, caches, tok, positions[i])
+        tok = torch.argmax(lg, -1)[:, None]
+        out.append(tok)
+    return logits, torch.cat(out, 1)
+
+
+def phase_lm_prefill():
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import lm
+
+    # a float32 reference states its matmul precision: TF32 off
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    published = configs.get_config(LLAMA)
+    tokens = torch.randint(0, published.vocab, (4, 512), device=DEV,
+                           generator=torch.Generator(device=DEV).manual_seed(1))
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(published, dtype=dtype)
+        params = lm.init_params(cfg, torch.Generator(device=DEV).manual_seed(0), DEV)
+        FA.launches = 0
+        lf, tf = greedy(cfg, params, tokens, "flash", 32)
+        launches = FA.launches
+        lb, tb = greedy(cfg, params, tokens, "blockwise", 32)
+        torch.cuda.synchronize()
+        d = float((lf - lb).abs().max())
+        agree = float((tf == tb).float().mean())
+        finite = bool(torch.isfinite(lf).all())
+        emit(phase="lm_prefill", arch=cfg.name, dtype=dtype, batch=4, prompt=512,
+             max_abs_logit_diff=d, greedy_tokens=int(tf.numel()),
+             greedy_agreement=agree, flash_launches=launches,
+             asserted=dtype == "float32", tf32=False)
+        if launches != cfg.n_layers:
+            raise AssertionError(f"flash launched {launches} times in one "
+                                 f"prefill of {cfg.n_layers} layers")
+        if not finite:
+            raise AssertionError("non-finite prefill logits")
+        if dtype == "float32" and (d > 1e-3 or agree != 1.0):
+            raise AssertionError(f"f32 flash prefill differs from blockwise: "
+                                 f"max |d logits| {d}, agreement {agree}")
+        del params
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the serve entry point, timed
+# ---------------------------------------------------------------------------
+
+def phase_serve() -> int:
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import serve
+
+    cfg = configs.get_config(LLAMA)
+    serve.main(SERVE_ARGV)                 # warm: cuBLAS, allocator, library
+    FA.launches = 0
+    out = serve.main(SERVE_ARGV)
+    launches = FA.launches
+    toks = out["tokens"]
+    if launches != cfg.n_layers:
+        raise AssertionError(f"serve prefill launched flash {launches} times, "
+                             f"not {cfg.n_layers}")
+    if toks.shape != (16, 65) or toks.min() < 0 or toks.max() >= cfg.vocab:
+        raise AssertionError(f"serve tokens out of shape or range: {toks.shape}")
+    emit(phase="serve", argv=" ".join(SERVE_ARGV), device=out["device"],
+         prefill_ms=1e3 * out["prefill_s"],
+         decode_tokens_per_s=16 * 64 / out["decode_s"],
+         req_per_s=out["req_per_s"], flash_launches=launches)
+    return launches
+
+
+def flash_row() -> dict:
+    """The flash kernel at the serve prefill's shape (llama3.2-1b, bf16,
+    B=16, S=2048): ms per launch against the plain version (blockwise),
+    scaled_dot_product_attention and the bound.  The main path's launch
+    counts are filled in by the caller."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models.attention import blockwise_attention
+
+    B, S, H, Hkv, dh = SERVE_HEADS
+    gen = torch.Generator(device=DEV).manual_seed(2)
+    q = randn(gen, (B, S, H, dh), torch.bfloat16)
+    k, v = (randn(gen, (B, S, Hkv, dh), torch.bfloat16) for _ in range(2))
+    none = lambda: None
+    n0 = FA.launches
+    ms = cuda_time_ms(lambda: FA.flash_attention(q, k, v, causal=True), none, 20)
+    dev = device_ms(lambda: FA.flash_attention(q, k, v, causal=True), none, 10,
+                    "flash_fwd_kernel")
+    FA.launches = n0
+    plain = cuda_time_ms(lambda: blockwise_attention(q, k, v, causal=True),
+                         none, 3, warm=1)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), none, 20)
+    pairs = S * (S + 1) // 2                      # causal (query, key) pairs
+    ops = 4 * B * H * dh * pairs
+    nbytes = 2 * (2 * B * S * H * dh + 2 * B * S * Hkv * dh)
+    t_ops = 1e3 * ops / H100_BF16_OPS_PER_S
+    t_bytes = 1e3 * nbytes / H100_HBM_BYTES_PER_S
+    return dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:88",
+        launches=None, max_abs_err=AGREEMENT["flash_attention"][1],
+        ms=ms, plain_ms=plain, bound_ms=max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        library_ms=lib, device_ms=dev, bytes=nbytes, ops=ops,
+        shape=f"B={B} S={S} H={H} Hkv={Hkv} dh={dh} bf16 causal")
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the paper's MCTS with the LM as simulation, full width
+# ---------------------------------------------------------------------------
+
+class RecordingEnv:
+    """The live env, recording every step's result by (state, action)."""
+
+    def __init__(self, env):
+        self.env, self.table, self.steps = env, {}, 0
+        self.state_shape, self.state_dtype = env.state_shape, env.state_dtype
+        self.max_actions = env.max_actions
+
+    def initial_state(self, seed):
+        return self.env.initial_state(seed)
+
+    def num_actions(self, state):
+        return self.env.num_actions(state)
+
+    def step(self, state, a):
+        out = self.env.step(state, a)
+        self.table[(state.tobytes(), int(a))] = out
+        self.steps += 1
+        return out
+
+
+class ReplayEnv(RecordingEnv):
+    """Replays a RecordingEnv's steps; a step it never saw raises."""
+
+    def __init__(self, rec: RecordingEnv):
+        super().__init__(rec.env)
+        self.table = rec.table
+
+    def step(self, state, a):
+        s2, r, term = self.table[(state.tobytes(), int(a))]
+        return s2.copy(), r, term
+
+
+class RecordingBackend:
+    def __init__(self, sim):
+        self.sim, self.calls = sim, []
+
+    def evaluate(self, states):
+        vals, pri = self.sim.evaluate(states)
+        self.calls.append((states.copy(), vals.copy()))
+        return vals, pri
+
+
+class ReplayBackend:
+    def __init__(self, rec: RecordingBackend):
+        self.calls = iter(rec.calls)
+
+    def evaluate(self, states):
+        seen, vals = next(self.calls)
+        if not np.array_equal(seen, states):
+            raise AssertionError("the reference evaluates other states")
+        return vals.copy(), None
+
+
+def logged(m) -> list:
+    """Record each superstep's selection and the tree after it."""
+    log, step = [], m.superstep
+
+    def superstep(*a, **kw):
+        sel = step(*a, **kw)
+        log.append((sel, m.exec.snapshot(m.tree)))
+        return sel
+
+    m.superstep = superstep
+    return log
+
+
+def phase_mcts_lm():
+    from repro_torch import configs
+    from repro_torch.core import TreeConfig, TreeParallelMCTS
+    from repro_torch.core.mcts import StepStats
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import uct_backup, uct_select
+    from repro_torch.models import lm
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.sim import LMContinuationBackend, LMTreeEnv
+
+    cfg = configs.get_config(LLAMA)
+    params = lm.init_params(cfg, torch.Generator(device=DEV).manual_seed(0), DEV)
+    tree = TreeConfig(X=256, F=6, D=4)
+    env = RecordingEnv(LMTreeEnv(cfg, params, fanout=6, horizon=5))
+    reg = MetricsRegistry()
+    sim = RecordingBackend(LMContinuationBackend(env.env, pool_size=16,
+                                                 metrics=reg))
+    mc = TreeParallelMCTS(tree, env, sim, p=16, executor="cuda",
+                          expansion="loop", device=DEV)
+    log_c = logged(mc)
+    FA.launches = uct_select.launches = uct_backup.launches = 0
+    moves, t0 = [], time.perf_counter()
+    for reuse in (False, True):
+        mc.stats = StepStats()
+        t1 = time.perf_counter()
+        a, _, _ = mc.run_step(reuse_subtree=reuse)
+        wall = time.perf_counter() - t1
+        s, n = mc.stats, max(mc.stats.supersteps, 1)
+        tok = int(mc.env.env.tokens(mc.root_state)[-1])
+        moves.append(int(a))
+        emit(phase="mcts_lm", reuse_subtree=reuse, action=int(a), token=tok,
+             supersteps=s.supersteps, wall_s=wall,
+             supersteps_per_s=s.supersteps / wall,
+             ms_per_superstep={k: 1e3 * getattr(s, "t_" + k) / n for k in (
+                 "select", "insert", "st", "sim", "transfer", "backup",
+                 "intree", "total")})
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": FA.launches, "uct_select": uct_select.launches,
+                "uct_backup": uct_backup.launches}
+    # full forwards with S > 1: every env step (no cache) and every
+    # admission of a prompt longer than one token (a one-token prompt
+    # goes through the decode path, as in the JAX package)
+    one_token = sum(int((st[:, 0] == 1).sum()) for st, _ in sim.calls)
+    admitted = reg.get("serving_admitted_total").value
+    forwards = env.steps + admitted - one_token
+
+    mr = TreeParallelMCTS(tree, ReplayEnv(env), ReplayBackend(sim), p=16,
+                          executor="reference", expansion="loop", device=DEV)
+    log_r = logged(mr)
+    ref_moves = [int(mr.run_step(reuse_subtree=reuse)[0])
+                 for reuse in (False, True)]
+    if len(log_c) != len(log_r):
+        raise AssertionError(f"{len(log_c)} supersteps against the oracle's "
+                             f"{len(log_r)}")
+    for i, ((sc, tc), (sr, tr)) in enumerate(zip(log_c, log_r)):
+        for k in sr:
+            if not np.array_equal(sc[k], sr[k]):
+                raise AssertionError(f"superstep {i}: selection {k} differs")
+        for k in tr:
+            if not np.array_equal(tc[k], tr[k]):
+                raise AssertionError(f"superstep {i}: tree {k} differs")
+    if moves != ref_moves:
+        raise AssertionError(f"actions {moves} against the oracle's {ref_moves}")
+    steps = len(log_c)
+    if launches["flash_attention"] != cfg.n_layers * forwards:
+        raise AssertionError(f"flash launched {launches['flash_attention']} "
+                             f"times for {forwards} full forwards")
+    for name in ("uct_select", "uct_backup"):
+        if launches[name] != steps:
+            raise AssertionError(f"{name} launched {launches[name]} times in "
+                                 f"{steps} supersteps")
+    emit(phase="mcts_lm", identical=True, supersteps=steps, moves=moves,
+         tokens=mc.env.env.tokens(mc.root_state).tolist(), launches=launches,
+         full_forwards=forwards, env_steps=env.steps, admissions=admitted,
+         one_token_admissions=one_token,
+         decode_steps=sim.sim.batcher.decode_steps, wall_s=wall,
+         supersteps_per_s=steps / wall)
+    phase_lm_costs(cfg, params, env.env, mc.root_state)
+    return launches
+
+
+def wall_and_device_ms(fn, n: int) -> dict:
+    """ms per call of fn on the host's clock (ending in a synchronize),
+    and the device time of all its kernels per call from torch.profiler
+    (summed over the device-side events only: a CPU op's device time
+    repeats its kernels'), so busy = device / wall; `top` lists the five
+    kernels with the most device time per call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0) / n
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    self_ms = sorted(((getattr(e, "self_device_time_total", None)
+                       or getattr(e, "self_cuda_time_total", 0.0)) / 1e3 / n,
+                      e.key[:90]) for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA)
+    dev = sum(ms for ms, _ in self_ms)
+    return {"wall_ms": wall, "device_ms": dev, "busy": dev / wall,
+            "top": [[k, ms] for ms, k in self_ms[::-1][:5]]}
+
+
+def phase_lm_costs(cfg, params, env, state):
+    """Where phase 8's superstep goes: one LMTreeEnv expansion (a B=1
+    forward and the host argsort over the vocabulary), the host log-prob
+    of one logits row, and one decode step of the continuation pool
+    (B=16) and of the serve shape (B=16 over a 2,120-slot cache)."""
+    from repro_torch.models import lm, steps
+    from repro_torch.serving.batcher import _logprob
+
+    row = np.random.RandomState(3).randn(cfg.padded_vocab).astype(np.float32)
+    host = {}
+    for name, fn in (("argsort_vocab", lambda: np.argsort(-row)),
+                     ("logprob_row", lambda: _logprob(row, 7))):
+        t0 = time.perf_counter()
+        for _ in range(20):
+            fn()
+        host[name + "_ms"] = 1e3 * (time.perf_counter() - t0) / 20
+    decode = steps.make_decode_step(cfg, impl="flash")
+    tok = torch.zeros((16, 1), dtype=torch.long, device=DEV)
+    out = {}
+    for name, max_seq, pos in (("decode_pool16", 55, 6), ("decode_serve", 2120, 2048)):
+        caches = lm.init_caches(cfg, 16, max_seq, DEV)
+        posv = torch.full((16,), pos, dtype=torch.int32, device=DEV)
+        out[name] = wall_and_device_ms(lambda: decode(params, caches, tok, posv), 10)
+    out["top_actions"] = wall_and_device_ms(lambda: env.top_actions(state), 10)
+    emit(phase="lm_costs", state_len=int(state[0]), **host, **out)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -468,6 +923,13 @@ def main() -> int:
     mc, launches, steps = phase_main_path()
     phase_timed()
     kernels = kernel_rows(mc, launches)
+    emit(phase="flash", cases=phase_flash(), outside_tolerance=0)
+    phase_lm_prefill()
+    serve_launches = phase_serve()
+    flash = flash_row()
+    lm_launches = phase_mcts_lm()
+    kernels.append(dict(flash, launches=lm_launches["flash_attention"],
+                        launches_serve=serve_launches))
     emit(phase="total", seconds=round(time.perf_counter() - t_start, 3))
     print(gpu, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,0 +1,42 @@
+"""Architecture registry of the port (mirrors repro.configs).
+
+Each ported arch has its own module exporting CONFIG (the published
+numbers) and SMOKE (a reduced config of the same family for CPU tests).
+Only the dense GQA archs of the LM slice are ported; asking for another
+raises ``NotImplementedError`` naming the ROADMAP.md item that ports it.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+# canonical ids as given in the assignment (dashes/dots)
+CANON = {
+    "paligemma-3b": "paligemma_3b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
+    "gemma3-12b": "gemma3_12b",
+    "starcoder2-3b": "starcoder2_3b",
+    "llama3.2-1b": "llama3_2_1b",
+    "granite-3-8b": "granite_3_8b",
+    "mamba2-2.7b": "mamba2_2_7b",
+    "whisper-small": "whisper_small",
+    "deepseek-v3-671b": "deepseek_v3_671b",
+    "mixtral-8x22b": "mixtral_8x22b",
+}
+
+PORTED = ("llama3_2_1b", "gemma3_12b", "starcoder2_3b")
+
+
+def normalize(arch: str) -> str:
+    return CANON.get(arch, arch.replace("-", "_").replace(".", "_"))
+
+
+def get_config(arch: str, smoke: bool = False):
+    name = normalize(arch)
+    if name not in PORTED:
+        raise NotImplementedError(
+            f"arch {arch!r} is not ported yet: the port has the dense GQA "
+            f"archs {PORTED}; MLA, MoE, SSD, RG-LRU, the VLM prefix and the "
+            f"encoder are ROADMAP.md queue A item 8")
+    mod = importlib.import_module(f"repro_torch.configs.{name}")
+    return mod.SMOKE if smoke else mod.CONFIG

@@ -1,8 +1,8 @@
 """Build and load the hand-written CUDA kernels (nvcc + ctypes).
 
-Each ``csrc/<name>.cu`` has a plain C interface (``<name>_launch``) and is
-compiled at first use into ``_build/`` beside this file (listed in
-.gitignore), named by a hash of its source and the flags, so a changed
+Each ``csrc/<name>.cu`` has a plain C interface (``extern "C"`` entry
+points that return ``cudaGetLastError()``) and is compiled at first use
+into ``_build/`` beside this file (listed in .gitignore), named by a hash of its source and the flags, so a changed
 source is rebuilt and an unchanged one is loaded as is.  ``build_all``
 starts one nvcc per missing library at once, so a fresh checkout builds
 every kernel in the time of the slowest one.
@@ -22,7 +22,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-KERNELS = ("uct_select", "uct_backup")
+KERNELS = ("uct_select", "uct_backup", "flash_attention")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
@@ -74,17 +74,19 @@ def build_all(names=KERNELS) -> dict:
     return {n: _finish(n, *s) for n, s in started.items()}
 
 
-def load(name: str, argtypes: list) -> ctypes.CDLL:
+def load(name: str, entry_points: dict) -> ctypes.CDLL:
     """The loaded library of kernel `name` (built first if missing), with
-    ``<name>_launch`` typed: argtypes as given, int return."""
+    each C entry point of ``entry_points`` ({function: argtypes}) typed:
+    argtypes as given, int return."""
     if name not in _loaded:
         path = library_path(name)
         if not path.exists():
             _finish(name, *_start(name))
         lib = ctypes.CDLL(str(path))
-        fn = getattr(lib, f"{name}_launch")
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for fn_name, argtypes in entry_points.items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _loaded[name] = lib
     return _loaded[name]
 

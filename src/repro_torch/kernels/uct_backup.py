@@ -74,7 +74,7 @@ def backup_arena(cfg: TreeConfig, arena: UCTree, active: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"uct_backup runs on cuda (or cpu: plain), not {dev}")
 
-    lib = build.load(NAME, ARGTYPES)
+    lib = build.load(NAME, {f"{NAME}_launch": ARGTYPES})
     a = arena
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

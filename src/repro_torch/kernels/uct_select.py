@@ -96,7 +96,7 @@ def select_arena(cfg: TreeConfig, arena: UCTree, active: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"uct_select runs on cuda (or cpu: plain), not {dev}")
 
-    lib = build.load(NAME, ARGTYPES)
+    lib = build.load(NAME, {f"{NAME}_launch": ARGTYPES})
     D = cfg.D
     e = lambda *s: torch.empty(s, dtype=torch.int32, device=dev)
     sel = intree.SelectionResult(e(G, p, D), e(G, p, D), e(G, p), e(G, p),

@@ -1,0 +1,85 @@
+"""Serving launcher: batched LM inference = the paper's Simulation backend
+(the port of repro.launch.serve).
+
+Stands up an LM (smoke or full config, random weights from --seed),
+prefills a batch of prompts through the flash kernel, then serves decode
+steps, reporting the paper's system-throughput metric (simulation
+requests per second, one request = one batched-decode slot).  Runs on the
+CUDA card unless given --device cpu.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
+      --batch 16 --prefill 2048 --tokens 64
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import configs
+from repro_torch.core.tree import resolve_device
+from repro_torch.models import lm, steps
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama3.2-1b")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=16)
+    ap.add_argument("--prefill", type=int, default=64)
+    ap.add_argument("--tokens", type=int, default=64)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="default: cuda (raises without a card); cpu runs "
+                         "the plain torch path")
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    cfg = configs.get_config(args.arch, smoke=args.smoke)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    params = lm.init_params(cfg, gen, device)
+    prefill = steps.make_prefill_step(cfg, impl="flash")
+    decode = steps.make_decode_step(cfg, impl="flash")
+
+    max_seq = args.prefill + args.tokens + 8
+    caches = lm.init_caches(cfg, args.batch, max_seq, device)
+    tokens = torch.as_tensor(np.random.RandomState(args.seed).randint(
+        0, cfg.vocab, (args.batch, args.prefill)), device=device)
+
+    _sync(device)
+    t0 = time.perf_counter()
+    logits, caches = prefill(params, tokens, caches)
+    _sync(device)
+    t1 = time.perf_counter()
+
+    tok = torch.argmax(logits, -1)[:, None]
+    out = [tok]
+    positions = torch.arange(args.prefill, args.prefill + args.tokens,
+                             device=device)
+    for i in range(args.tokens):
+        logits, caches = decode(params, caches, tok, positions[i])
+        tok = torch.argmax(logits, -1)[:, None]
+        out.append(tok)
+    _sync(device)
+    t2 = time.perf_counter()
+
+    n_req = args.batch * args.tokens
+    name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    print(f"[serve] {cfg.name}: prefill {args.batch}x{args.prefill} in "
+          f"{t1-t0:.3f}s; {n_req} decode requests in {t2-t1:.3f}s "
+          f"=> {n_req/(t2-t1):,.0f} req/s on {name}", flush=True)
+    return {"device": name, "prefill_s": t1 - t0, "decode_s": t2 - t1,
+            "req_per_s": n_req / (t2 - t1),
+            "tokens": torch.cat(out, 1).cpu().numpy()}
+
+
+if __name__ == "__main__":
+    main()

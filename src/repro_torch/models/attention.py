@@ -1,0 +1,284 @@
+"""Attention on torch: GQA (full / sliding-window / prefix-causal) with KV
+caches for serving (the GQA half of repro.models.attention).
+
+Compute paths of a prefill (a forward with S > 1), chosen by ``impl``:
+  * "flash": the hand-written CUDA kernel (kernels/flash_attention.py),
+    the Hopper port of the JAX package's Pallas flash kernel.  On a CPU
+    tensor its wrapper runs the plain version, ``naive_attention``.  It
+    has no prefix mask, so a VLM config raises.
+  * "blockwise": the online softmax over 512-key blocks as a Python loop
+    (the JAX package's lax.scan), O(S) memory.
+  * "naive": materialized scores, small shapes and tests.
+
+Decode (S == 1 with a cache) attends a single query over the cache
+buffer with a validity mask, in plain torch for every ``impl``, as in the
+JAX package.  Windowed layers use a ring buffer of size ``window``.
+Caches store K after RoPE (absolute positions).
+
+Layouts are the JAX package's: q ``[B,S,H,dh]``, k/v ``[B,S,Hkv,dh]``,
+``wq [d,H,dh]``, ``wk``/``wv [d,Hkv,dh]``, ``wo [H,dh,d]``.  Where the JAX
+package rebuilds a cache, the port writes it in place
+(``_cache_update``) and returns the same tensors.  Scores and softmax
+are f32 as the JAX package's ``preferred_element_type=f32``; a bf16
+operand is widened to f32 first (its products are exact in f32).
+
+MLA and cross-attention wait for their slices (ROADMAP.md queue A item 8).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import flash_attention as FA
+from repro_torch.models import layers as L
+
+NEG = -2.0e38
+BLOCK_Q = 512
+BLOCK_K = 512
+IMPLS = ("naive", "blockwise", "flash")
+
+
+# ------------------------------------------------------------------ init
+
+def init_attn(cfg, gen, spec) -> dict:
+    if cfg.attn_impl == "mla" or spec.cross_attn:
+        raise NotImplementedError(
+            "MLA and cross-attention are not ported yet (ROADMAP.md queue A "
+            "item 8)")
+    d, H, Hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    s, so = 1.0 / math.sqrt(d), 1.0 / math.sqrt(H * dh)
+    return {"wq": L.normal(gen, (d, H, dh), L.dt(cfg), s),
+            "wk": L.normal(gen, (d, Hkv, dh), L.dt(cfg), s),
+            "wv": L.normal(gen, (d, Hkv, dh), L.dt(cfg), s),
+            "wo": L.normal(gen, (H, dh, d), L.dt(cfg), so)}
+
+
+# ----------------------------------------------------- blockwise attention
+
+def _gqa_scores(q, k):
+    """q: [B,Sq,H,dh], k: [B,Sk,Hkv,dh] -> f32 [B,H,Sq,Sk] without
+    repeating k."""
+    B, Sq, H, dh = q.shape
+    Hkv = k.shape[2]
+    qg = q.float().reshape(B, Sq, Hkv, H // Hkv, dh)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float())
+    return s.reshape(B, H, Sq, k.shape[1])
+
+
+def _gqa_out(p_attn, v):
+    """p: [B,H,Sq,Sk], v: [B,Sk,Hkv,dh] -> f32 [B,Sq,H,dh]."""
+    B, H, Sq, Sk = p_attn.shape
+    Hkv = v.shape[2]
+    pg = p_attn.reshape(B, Hkv, H // Hkv, Sq, Sk)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", pg.float(),
+                     v.to(p_attn.dtype).float())
+    return o.reshape(B, Sq, H, v.shape[3])
+
+
+def naive_attention(q, k, v, *, causal, window=None, prefix=0,
+                    q_offset=0, kv_valid=None, scale=None):
+    """Reference attention with materialized scores (tests / tiny shapes).
+
+    prefix: first `prefix` query/key positions attend bidirectionally.
+    q_offset: absolute position of q[0] relative to k[0] (decode).
+    kv_valid: [B, Sk] bool mask of valid cache slots.  Returns f32."""
+    scale = scale or (1.0 / math.sqrt(q.shape[-1]))
+    s = _gqa_scores(q * scale, k)
+    Sq, Sk = s.shape[-2], s.shape[-1]
+    qpos = torch.arange(Sq, device=q.device) + q_offset
+    kpos = torch.arange(Sk, device=q.device)
+    m = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        m &= kpos[None, :] <= qpos[:, None]
+        if prefix:
+            m |= kpos[None, :] < prefix
+    if window is not None:
+        m &= kpos[None, :] > qpos[:, None] - window
+    s = torch.where(m, s, NEG)
+    if kv_valid is not None:
+        s = torch.where(kv_valid[:, None, None, :], s, NEG)
+    p_attn = torch.softmax(s, dim=-1)
+    return _gqa_out(p_attn.to(v.dtype), v)
+
+
+def _block_out(p_attn, vblk):
+    """[B,H,bq,bk] x [B,bk,Hkv,dhv] -> [B,H,bq,dhv] (GQA-aware)."""
+    B, H, bq, bk = p_attn.shape
+    Hkv = vblk.shape[2]
+    pg = p_attn.reshape(B, Hkv, H // Hkv, bq, bk)
+    o = torch.einsum("bhgqk,bkhd->bhgqd", pg, vblk.float())
+    return o.reshape(B, H, bq, vblk.shape[3])
+
+
+def blockwise_attention(q, k, v, *, causal=True, window=None, prefix=0,
+                        scale=None):
+    """Flash-style attention in torch: a loop over KV blocks with an
+    online softmax.  Windowed layers visit only in-window KV blocks.
+
+    The JAX package's scan runs a fixed number of steps per query block
+    and masks the steps before key block 0 entirely; this loop leaves
+    those steps out.  A fully masked step leaves a row with a finite
+    running max unchanged, and every real row meets its diagonal key in
+    the first step, so the result is the same."""
+    scale = scale or (1.0 / math.sqrt(q.shape[-1]))
+    B, S, H, dh = q.shape
+    Sk, Hkv, dhv = k.shape[1], k.shape[2], v.shape[-1]
+    bq, bk = min(BLOCK_Q, S), min(BLOCK_K, Sk)
+    nq, nk = -(-S // bq), -(-Sk // bk)
+    Sp, Skp = nq * bq, nk * bk
+    qp = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, Sp - S))
+    kp = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, Skp - Sk))
+    vp = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, Skp - Sk))
+    dev = q.device
+    # how many kv blocks behind the diagonal a query block must visit
+    w_blocks = nk if window is None else min(nk, window // bk + 2)
+    out = torch.empty((B, Sp, H, dhv), dtype=torch.float32, device=dev)
+    for qi in range(nq):
+        qblk = qp[:, qi * bq:(qi + 1) * bq] * scale
+        qpos = qi * bq + torch.arange(bq, device=dev)
+        m_run = torch.full((B, H, bq), NEG, dtype=torch.float32, device=dev)
+        l_run = torch.zeros((B, H, bq), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, H, bq, dhv), dtype=torch.float32, device=dev)
+        if causal:
+            blocks = [qi * bq // bk - rel for rel in range(w_blocks)
+                      if qi * bq // bk - rel >= 0]
+            blocks = [min(kj, nk - 1) for kj in blocks]
+        else:
+            blocks = range(nk)
+        for kj in blocks:
+            kblk = kp[:, kj * bk:(kj + 1) * bk]
+            vblk = vp[:, kj * bk:(kj + 1) * bk]
+            kpos = kj * bk + torch.arange(bk, device=dev)
+            s = _gqa_scores(qblk, kblk)                        # [B,H,bq,bk]
+            msk = torch.ones((bq, bk), dtype=torch.bool, device=dev)
+            if causal:
+                msk &= kpos[None, :] <= qpos[:, None]
+                if prefix:
+                    msk |= kpos[None, :] < prefix
+            if window is not None:
+                msk &= kpos[None, :] > qpos[:, None] - window
+            msk &= (kpos < Sk)[None, :]
+            s = torch.where(msk, s, NEG)
+            m_new = torch.maximum(m_run, s.amax(-1))
+            alpha = torch.exp(m_run - m_new)
+            p_b = torch.exp(s - m_new[..., None])
+            l_run = l_run * alpha + p_b.sum(-1)
+            acc = acc * alpha[..., None] + _block_out(p_b, vblk)
+            m_run = m_new
+        o = acc / torch.clamp(l_run, min=1e-30)[..., None]
+        out[:, qi * bq:(qi + 1) * bq] = o.transpose(1, 2)
+    return out[:, :S].to(v.dtype)
+
+
+# --------------------------------------------------------------- forward
+
+def _proj_out(out, wo):
+    """einsum("bshk,hkd->bsd") with the JAX package's type promotion."""
+    dtype = torch.promote_types(out.dtype, wo.dtype)
+    B, S, H, dh = out.shape
+    return out.to(dtype).reshape(B, S, H * dh) @ wo.to(dtype).reshape(H * dh, -1)
+
+
+def _proj_in(x, w):
+    """einsum("bsd,dhk->bshk")."""
+    d, H, dh = w.shape
+    return (x @ w.reshape(d, H * dh)).reshape(*x.shape[:2], H, dh)
+
+
+def attn_forward(cfg, spec, p, x, positions, cache=None, impl="blockwise"):
+    """Self-attention.  x: [B,S,d].  cache: None (prefill without cache)
+    or dict(k, v, pos) for decode / prefill-with-cache, written in place.
+    Returns (out [B,S,d], cache)."""
+    if cfg.attn_impl == "mla":
+        raise NotImplementedError("MLA is not ported yet (ROADMAP.md queue A item 8)")
+    if impl not in IMPLS:
+        raise ValueError(f"impl {impl!r} not in {IMPLS}")
+    S = x.shape[1]
+    q = L.rope(_proj_in(x, p["wq"]), positions, cfg.rope_theta)
+    k = L.rope(_proj_in(x, p["wk"]), positions, cfg.rope_theta)
+    v = _proj_in(x, p["wv"])
+
+    if cache is not None:
+        cache = _cache_update(cfg, spec, cache, k, v, positions)
+        if S == 1:  # decode
+            out = _decode_attend(cfg, spec, q, cache, positions)
+            return _proj_out(out, p["wo"]), cache
+        # prefill-with-cache: attend over the raw (unwrapped) K/V; the ring
+        # buffer is only for subsequent decode steps.
+
+    if impl == "naive":
+        out = naive_attention(q, k, v, causal=True, window=spec.window,
+                              prefix=cfg.vlm_patches)
+    elif impl == "blockwise":
+        out = blockwise_attention(q, k, v, causal=True, window=spec.window,
+                                  prefix=cfg.vlm_patches)
+    else:
+        if cfg.vlm_patches:
+            raise NotImplementedError(
+                "impl='flash' has no prefix mask (nor has the Pallas kernel)")
+        out = FA.flash_attention(q, k, v, causal=True, window=spec.window)
+    return _proj_out(out, p["wo"]), cache
+
+
+# ------------------------------------------------------------------ cache
+
+def init_cache(cfg, spec, batch, max_seq, device) -> dict:
+    """Preallocated decode cache for one attention layer."""
+    buf = max_seq if spec.window is None else min(spec.window, max_seq)
+    shape = (batch, buf, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=L.dt(cfg), device=device),
+            "v": torch.zeros(shape, dtype=L.dt(cfg), device=device),
+            "pos": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def _cache_update(cfg, spec, cache, k, v, positions):
+    """Write new entries at their (ring-buffered if windowed) slots, in
+    place.  When prefilling more tokens than the buffer holds, keep the
+    last `buf`.  positions: [S] shared, or [B, S] per-row (ragged
+    continuous batching)."""
+    ck, cv = cache["k"], cache["v"]
+    buf = ck.shape[1]
+    if k.shape[1] > buf:
+        k, v = k[:, -buf:], v[:, -buf:]
+        positions = positions[..., -buf:]
+    slots = (positions % buf).long()
+    if slots.dim() == 2:  # per-row scatter
+        b_idx = torch.arange(k.shape[0], device=k.device)[:, None]
+        ck[b_idx, slots] = k.to(ck.dtype)
+        cv[b_idx, slots] = v.to(cv.dtype)
+    else:
+        ck[:, slots] = k.to(ck.dtype)
+        cv[:, slots] = v.to(cv.dtype)
+    cache["pos"].copy_(positions.max() + 1)
+    return cache
+
+
+def _decode_attend(cfg, spec, q, cache, positions):
+    """Single-token attention over the cache buffer with validity mask.
+    positions: [1] shared, or [B, 1] per-row (ragged batching)."""
+    B = q.shape[0]
+    buf = cache["k"].shape[1]
+    cur = positions[..., -1]                          # [] or [B]
+    slot_pos = _slot_positions(buf, cur)              # [buf] or [B, buf]
+    curb = cur[..., None]
+    # slot_pos < 0 marks never-written ring slots (first lap)
+    valid = (slot_pos <= curb) & (slot_pos >= 0)
+    if spec.window is not None:
+        valid &= slot_pos > curb - spec.window
+    valid = valid.expand(B, buf)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = _gqa_scores(q * scale, cache["k"])            # [B,H,1,buf]
+    s = torch.where(valid[:, None, None, :], s, NEG)
+    p_attn = torch.softmax(s, dim=-1)
+    return _gqa_out(p_attn.to(cache["v"].dtype), cache["v"])
+
+
+def _slot_positions(buf, cur):
+    """Absolute position stored in each ring slot, given next-pos = cur.
+    cur: [] or [B] -> [buf] or [B, buf]."""
+    idx = torch.arange(buf, device=cur.device)
+    c = cur[..., None] if cur.dim() else cur
+    wrap = torch.div(c, buf, rounding_mode="floor") * buf + idx
+    return torch.where(idx <= c % buf, wrap, wrap - buf)

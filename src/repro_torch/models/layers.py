@@ -1,0 +1,134 @@
+"""Shared neural-net layers on torch (the port of repro.models.layers).
+
+Params are plain dicts of tensors with the JAX package's shapes
+(``wi [d, f]``, ``wo [f, d]``, ``tok [V, d]``), so weights carry across
+both packages unchanged.  The JAX package's logical-axes half (``axes``
+for sharding) is dropped: the port runs on one device.  Every ``init_*``
+draws from a ``torch.Generator`` and allocates on that generator's
+device.  ``causal_conv1d`` waits for the SSD / RG-LRU slice.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def dt(cfg) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def normal(gen: torch.Generator, shape, dtype, scale: float) -> torch.Tensor:
+    """N(0, 1) * scale in `dtype`, drawn on the generator's device."""
+    x = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
+    return x.mul_(scale).to(dtype)
+
+
+# ----------------------------------------------------------------- norms
+
+def init_norm(cfg, device) -> dict:
+    d = cfg.d_model
+    p = {"scale": torch.ones(d, dtype=torch.float32, device=device)}
+    if cfg.norm == "layernorm":
+        p["bias"] = torch.zeros(d, dtype=torch.float32, device=device)
+    return p
+
+
+def norm(cfg, p, x):
+    xf = x.float()
+    if cfg.norm == "layernorm":
+        mu = xf.mean(-1, keepdim=True)
+        var = xf.var(-1, keepdim=True, unbiased=False)
+        y = (xf - mu) * torch.rsqrt(var + 1e-6) * p["scale"] + p["bias"]
+    else:
+        ms = xf.square().mean(-1, keepdim=True)
+        y = xf * torch.rsqrt(ms + 1e-6) * p["scale"]
+    return y.to(x.dtype)
+
+
+# ------------------------------------------------------------ activations
+
+def act_fn(cfg):
+    # jax.nn.gelu defaults to the tanh approximation
+    if cfg.act == "silu":
+        return F.silu
+    return lambda x: F.gelu(x, approximate="tanh")
+
+
+# ------------------------------------------------------------------- mlp
+
+def init_mlp(cfg, gen) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    s_in, s_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f)
+    p = {"wi": normal(gen, (d, f), dt(cfg), s_in),
+         "wo": normal(gen, (f, d), dt(cfg), s_out)}
+    if cfg.gated_mlp:
+        p["wg"] = normal(gen, (d, f), dt(cfg), s_in)
+    return p
+
+
+def mlp(cfg, p, x):
+    h = x @ p["wi"]
+    if cfg.gated_mlp:
+        h = act_fn(cfg)(x @ p["wg"]) * h
+    else:
+        h = act_fn(cfg)(h)
+    return h @ p["wo"]
+
+
+# ------------------------------------------------------------- embedding
+
+def init_embed(cfg, gen) -> dict:
+    v, d = cfg.padded_vocab, cfg.d_model
+    p = {"tok": normal(gen, (v, d), torch.float32, 0.02)}
+    if not cfg.tie_embeddings:
+        p["out"] = normal(gen, (d, v), torch.float32, 0.02)
+    return p
+
+
+def embed(cfg, p, tokens):
+    # rows first, then the cast: the same values as the JAX package's
+    # take(tok.astype(dt)), without casting the whole table per call
+    x = p["tok"][tokens.long()].to(dt(cfg))
+    if cfg.embed_scale:
+        # sqrt(d) rounded to the dtype first, as the JAX package does; a
+        # Python scalar, so no host-to-device copy
+        x = x * float(torch.tensor(np.sqrt(cfg.d_model), dtype=dt(cfg)))
+    return x
+
+
+def unembed(cfg, p, x):
+    w = p["out"] if "out" in p else p["tok"].T
+    logits = x.float() @ w.float()
+    if cfg.logit_softcap > 0:
+        c = cfg.logit_softcap
+        logits = torch.tanh(logits / c) * c
+    return logits
+
+
+# ------------------------------------------------------------------ rope
+
+@functools.lru_cache(maxsize=None)
+def _rope_freq(half: int, theta: float, device: torch.device) -> torch.Tensor:
+    """The frequencies in numpy float32, exactly as the JAX package builds
+    them, copied to `device` once: a pageable host-to-device copy per
+    call would wait for the device twice per layer."""
+    freq = theta ** (-np.arange(0, half, dtype=np.float32) / half)
+    return torch.from_numpy(np.ascontiguousarray(freq)).to(device)
+
+
+def rope(x, positions, theta: float):
+    """x: [..., S, H, dh]; positions: [..., S] int."""
+    half = x.shape[-1] // 2
+    freq = _rope_freq(half, theta, x.device)
+    # [..., S, 1, half]: broadcast over the head dim
+    ang = positions[..., :, None, None].float() * freq
+    x1, x2 = x[..., :half], x[..., half:]
+    c, s = torch.cos(ang), torch.sin(ang)
+    y1 = x1 * c - x2 * s
+    y2 = x2 * c + x1 * s
+    return torch.cat([y1, y2], dim=-1).to(x.dtype)

@@ -9,6 +9,9 @@ numpy and repro_torch, so it runs where jax is not installed:
 Trees are grown with the port's plain ops on the CPU from a numpy seed,
 then copied to the card twice: one copy goes through the kernels, the
 other through the plain versions, and every array must be identical.
+The flash-attention kernel is held to its plain version at the JAX flash
+test's tolerances (f32 2e-5, bf16 2e-2); in bf16 also to the plain version
+run in f32 on the same inputs, within one bf16 rounding of the output.
 """
 
 import numpy as np
@@ -18,6 +21,7 @@ import torch
 from repro_torch.core import fixedpoint as fx
 from repro_torch.core import intree
 from repro_torch.core.tree import NULL, TreeConfig, from_numpy, init_arena, to_numpy
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import uct_backup, uct_select
 
 SWEEP = [   # tests/test_kernels_uct.py TREE_SWEEP
@@ -100,3 +104,35 @@ def test_launch_counters_count_kernel_launches_only():
     uct_backup.backup_arena(cfg, arena, act, sel, sel.leaves, z)
     torch.cuda.synchronize()
     assert (uct_select.launches, uct_backup.launches) == (n_sel + 1, n_bak + 1)
+
+
+FLASH_CASES = [  # B, Sq, Sk, H, Hkv, dh, causal, window
+    (1, 7, 7, 32, 8, 64, True, None),        # one partial query tile (S < 64)
+    (1, 200, 200, 2, 1, 16, True, None),
+    (2, 384, 384, 8, 2, 128, True, 64),
+    (1, 300, 520, 4, 4, 256, False, 100),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_flash_kernel_matches_plain(case, dtype):
+    need_cuda()
+    B, Sq, Sk, H, Hkv, dh, causal, window = case
+    rng = np.random.RandomState(dh)
+    q, k, v = (torch.tensor(rng.randn(*shape), dtype=torch.float32)
+               .to(device="cuda", dtype=dtype)
+               for shape in ((B, Sq, H, dh), (B, Sk, Hkv, dh), (B, Sk, Hkv, dh)))
+    n = FA.launches
+    out = FA.flash_attention(q, k, v, causal=causal, window=window)
+    ref = FA.flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert FA.launches == n + 1
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    if dtype == torch.bfloat16:   # f32 math, one rounding: <= 2^-8 |out|
+        wide = FA.flash_attention_plain(q.float(), k.float(), v.float(),
+                                        causal=causal, window=window)
+        torch.testing.assert_close(out.float(), wide, atol=2e-5,
+                                   rtol=2e-5 + 2.0 ** -8)

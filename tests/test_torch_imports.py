@@ -47,6 +47,9 @@ def test_import_loads_no_jax_module():
         "import repro_torch, repro_torch.core, repro_torch.kernels.ops\n"
         "import repro_torch.kernels.ref, repro_torch.kernels.build\n"
         "import repro_torch.envs, repro_torch.core.reroot\n"
+        "import repro_torch.models.lm, repro_torch.models.steps\n"
+        "import repro_torch.serving, repro_torch.sim, repro_torch.obs\n"
+        "import repro_torch.launch.serve, repro_torch.configs.llama3_2_1b\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n")
