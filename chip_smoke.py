@@ -7,7 +7,11 @@ Phases (each raises on any failure, so the exit code is not 0):
 
   1. device and build: the card's name and power limit (nvidia-smi), and
      the kernels built from src/repro_torch/kernels/csrc with nvcc, all
-     at once;
+     at once; for each bf16 instantiation of the flash kernel, what
+     ptxas -v says (registers, spills, wgmma serialized or not), its
+     shared memory and CTAs per SM, and the HGMMA instructions in its
+     SASS (cuobjdump -sass), which must be there (and absent from the
+     f32 SIMT kernels);
   2. every kernel against its plain torch version on the card, bit for
      bit (zero mismatches in every output array): the TREE_SWEEP configs
      of tests/test_kernels_uct.py x p in {1, 4, 16} x G in {1, 8} with
@@ -39,8 +43,10 @@ Phases (each raises on any failure, so the exit code is not 0):
      published bf16 config, reported and not asserted;
   7. the serve entry point (repro_torch.launch.serve) at llama3.2-1b,
      bf16, --batch 16 --prefill 2048 --tokens 64, timed, with the flash
-     kernel's time per launch at that shape against its plain version
-     (blockwise), scaled_dot_product_attention and its bound;
+     kernel's time per launch at that shape, and at phase 8's longest
+     forward (B=1, S=43), against its plain version (blockwise),
+     scaled_dot_product_attention, its bound and the floor of the split-P
+     design's own tensor work (1.5x the function's);
   8. the paper's MCTS with the LM as its simulation at full width, bf16:
      TreeParallelMCTS(X=256, F=6, D=4, p=16) over LMTreeEnv and
      LMContinuationBackend, two run_step() calls (the second re-rooting),
@@ -87,6 +93,49 @@ GOMOKU = dict(X=48_000, F=36, D=5, score_fn="puct", leaf_mode="unexpanded",
 
 def emit(**kw):
     print(json.dumps(kw), flush=True)
+
+
+def flash_build_report():
+    """Per bf16 instantiation of the flash kernel: ptxas -v's registers and
+    spills (from the build log), whether ptxas serialized its wgmma
+    (C7511), its shared memory and CTAs per SM, and the HGMMA instructions
+    in its SASS.  Raises unless every bf16 instantiation runs on HGMMA and
+    the f32 SIMT kernels have none."""
+    import re
+    import shutil
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as FA
+
+    lib = build.library_path(FA.NAME)
+    ptxas, fn = {}, None
+    for ln in lib.with_suffix(".log").read_text().splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", ln):
+            fn = m[1]
+            ptxas.setdefault(fn, {})
+        elif m := re.search(r"function '(\w+)'", ln):
+            if "C7511" in ln:
+                ptxas.setdefault(m[1], {})["wgmma_serialized"] = True
+        elif fn and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)):
+            ptxas[fn].update(spill_stores=int(m[1]), spill_loads=int(m[2]))
+        elif fn and (m := re.search(r"Used (\d+) registers", ln)):
+            ptxas[fn]["registers"] = int(m[1])
+    exe = shutil.which("cuobjdump") or str(Path(build.nvcc_path()).parent / "cuobjdump")
+    sass = subprocess.run([exe, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    hgmma = {part.split()[0]: part.count("HGMMA")
+             for part in sass.split("Function : ")[1:]}
+    rows = []
+    for dh in FA.HEAD_DIMS:
+        name = next(n for n in ptxas if f"wgmma_kernelILi{dh}E" in n)
+        rows.append(dict(kernel=f"flash_fwd_wgmma_kernel<{dh}>", **{
+            "wgmma_serialized": False, **ptxas[name]}, hgmma=hgmma.get(name, 0),
+            **FA.bf16_config(dh)))
+    simt = sum(n for f, n in hgmma.items() if "flash_fwd_kernelIf" in f)
+    emit(phase="flash_build", bf16=rows, f32_simt_hgmma=simt)
+    if simt or not all(r["hgmma"] for r in rows):
+        raise AssertionError("a bf16 flash instantiation lacks HGMMA, or the "
+                             "f32 SIMT kernel has some")
 
 
 def gpu_line() -> str:
@@ -495,10 +544,6 @@ FULL_WIDTH_HEADS = [   # arch, H, Hkv, head_dim, windows (configs/*.py)
     ("gemma3-12b", 16, 8, 256, (1024, None)),
 ]
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # test_flash_kernel.py:47
-# bf16 kernel against the plain version in f32 on the same bf16 inputs:
-# the kernel computes in f32 and rounds once, so the two differ by at most
-# half a bf16 ulp (<= 2^-8 |out|) on top of the f32 tolerance
-BF16_ROUND_TOL = (2e-5, 2e-5 + 2.0 ** -8)                  # atol, rtol
 LLAMA = "llama3.2-1b"
 SERVE_ARGV = ["--arch", LLAMA, "--batch", "16", "--prefill", "2048",
               "--tokens", "64"]
@@ -526,7 +571,7 @@ def phase_flash() -> int:
     cases += [((1, 2048, 2048, H, Hkv, dh), w, arch)
               for arch, H, Hkv, dh, windows in FULL_WIDTH_HEADS for w in windows]
     cases += [(s, None, LLAMA + " main path") for s in MAIN_PATH_SHAPES]
-    bad, worst, n = [], 0.0, 0
+    bad, worst, n, worst_share = [], 0.0, 0, 0.0
     for shape, window, arch in cases:
         B, Sq, Sk, H, Hkv, dh = shape
         for dtype, tol in FLASH_TOL.items():
@@ -544,11 +589,12 @@ def phase_flash() -> int:
             if dtype == torch.bfloat16:
                 wide = FA.flash_attention_plain(q.float(), k.float(), v.float(),
                                                 causal=True, window=window)
-                atol, rtol = BF16_ROUND_TOL
+                atol, rtol = FA.BF16_ROUND_TOL
                 werr = (out - wide).abs()
                 ok_w = bool((werr <= atol + rtol * wide.abs()).all())
                 # worst error as a share of its bound (<= 1 passes)
                 share = float((werr / (atol + rtol * wide.abs())).max())
+                worst_share = max(worst_share, share)
                 row.update(max_abs_err_vs_f32=float(werr.max()),
                            tol_share_vs_f32=share, rtol_vs_f32=rtol,
                            ok_vs_f32=ok_w)
@@ -561,6 +607,8 @@ def phase_flash() -> int:
                 bad.append((shape, window, str(dtype)))
             del q, k, v, out, err
     AGREEMENT["flash_attention"] = [len(bad), worst]
+    emit(phase="flash", cases=n, outside_tolerance=len(bad), max_abs_err=worst,
+         worst_bf16_share_vs_f32=worst_share)
     if bad:
         raise AssertionError(f"flash kernel outside tolerance in {bad}")
     return n
@@ -653,45 +701,69 @@ def phase_serve() -> int:
     return launches
 
 
-def flash_row() -> dict:
-    """The flash kernel at the serve prefill's shape (llama3.2-1b, bf16,
-    B=16, S=2048): ms per launch against the plain version (blockwise),
-    scaled_dot_product_attention and the bound.  The main path's launch
-    counts are filled in by the caller."""
+PHASE8_HEADS = (1, 43, 32, 8, 64)   # phase 8's longest B=1 forward
+
+
+def flash_timing(shape, seed) -> dict:
+    """The flash kernel at one llama3.2-1b bf16 causal shape (B, S, H,
+    Hkv, dh): ms per launch from CUDA events and device ms from the
+    profiler, against the plain version (blockwise),
+    scaled_dot_product_attention and the bound (the function's work).  Its
+    flash_row line adds the bytes and operations and the floor of the
+    split-P design's tensor work (1.5x the function's); the returned row,
+    which goes on the kernels line, holds the measured times and the bound
+    only."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.models.attention import blockwise_attention
 
-    B, S, H, Hkv, dh = SERVE_HEADS
-    gen = torch.Generator(device=DEV).manual_seed(2)
+    B, S, H, Hkv, dh = shape
+    gen = torch.Generator(device=DEV).manual_seed(seed)
     q = randn(gen, (B, S, H, dh), torch.bfloat16)
     k, v = (randn(gen, (B, S, Hkv, dh), torch.bfloat16) for _ in range(2))
     none = lambda: None
     n0 = FA.launches
     ms = cuda_time_ms(lambda: FA.flash_attention(q, k, v, causal=True), none, 20)
     dev = device_ms(lambda: FA.flash_attention(q, k, v, causal=True), none, 10,
-                    "flash_fwd_kernel")
+                    "flash_fwd_wgmma")
     FA.launches = n0
     plain = cuda_time_ms(lambda: blockwise_attention(q, k, v, causal=True),
                          none, 3, warm=1)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True, enable_gqa=True), none, 20)
+    lib_dev = wall_and_device_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), 10)["device_ms"]
     pairs = S * (S + 1) // 2                      # causal (query, key) pairs
     ops = 4 * B * H * dh * pairs
     nbytes = 2 * (2 * B * S * H * dh + 2 * B * S * Hkv * dh)
     t_ops = 1e3 * ops / H100_BF16_OPS_PER_S
     t_bytes = 1e3 * nbytes / H100_HBM_BYTES_PER_S
+    split_floor = 1.5 * t_ops
+    row = dict(ms=ms, device_ms=dev, plain_ms=plain, library_ms=lib,
+               library_device_ms=lib_dev, bound_ms=max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               shape=f"B={B} S={S} H={H} Hkv={Hkv} dh={dh} bf16 causal")
+    # the split-P floor is the design's own, not the function's bound: it
+    # stays on this line and off the kernels line
+    emit(phase="flash_row", **row, bytes=nbytes, ops=ops,
+         split_floor_ms=split_floor, split_floor_share=split_floor / (dev or ms))
+    return row
+
+
+def flash_row() -> dict:
+    """The flash kernel's row of the kernels line: at the serve prefill's
+    shape (llama3.2-1b, bf16, B=16, S=2048), with the same numbers at
+    phase 8's shape beside it.  The main path's launch counts are filled
+    in by the caller."""
+    serve = flash_timing(SERVE_HEADS, 2)
     return dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:88",
-        launches=None, max_abs_err=AGREEMENT["flash_attention"][1],
-        ms=ms, plain_ms=plain, bound_ms=max(t_ops, t_bytes),
-        bound_by="operations" if t_ops >= t_bytes else "bytes",
-        library_ms=lib, device_ms=dev, bytes=nbytes, ops=ops,
-        shape=f"B={B} S={S} H={H} Hkv={Hkv} dh={dh} bf16 causal")
+        launches=None, max_abs_err=AGREEMENT["flash_attention"][1], **serve,
+        at_phase8_shape=flash_timing(PHASE8_HEADS, 3))
 
 
 # ---------------------------------------------------------------------------
@@ -917,13 +989,14 @@ def main() -> int:
     ptxas = [ln.strip() for log in logs.values() for ln in log.splitlines()
              if "registers" in ln or "spill" in ln]
     emit(phase="build", seconds=round(secs, 3), built=sorted(logs), ptxas=ptxas)
+    flash_build_report()
 
     n_cases = phase_kernels()
     emit(phase="kernels", cases=n_cases, mismatches=0)
     mc, launches, steps = phase_main_path()
     phase_timed()
     kernels = kernel_rows(mc, launches)
-    emit(phase="flash", cases=phase_flash(), outside_tolerance=0)
+    phase_flash()
     phase_lm_prefill()
     serve_launches = phase_serve()
     flash = flash_row()

@@ -12,6 +12,12 @@ plain version (``flash_attention_plain`` = models.attention's
 ``naive_attention`` with the same masks, cast to q's dtype) on CPU
 tensors.  On a CUDA tensor it launches the kernel or raises; it never
 falls back.  ``launches`` counts kernel launches.
+
+bf16 runs on the tensor cores (wgmma) with q, k and v brought in by TMA,
+which needs each tensor's base address and its batch, seq and head
+strides to be multiples of 16 bytes (8 bf16 elements): the LM's
+contiguous projections and ``[B,S,H,dh]`` views of a fused projection
+are; ``check_tma_layout`` refuses anything else, naming the stride.
 """
 
 from __future__ import annotations
@@ -26,11 +32,18 @@ from repro_torch.kernels import build
 NAME = "flash_attention"
 HEAD_DIMS = (16, 32, 64, 128, 256)
 DTYPES = {torch.float32: "flash_fwd_f32", torch.bfloat16: "flash_fwd_bf16"}
+# The bf16 kernel's output against the plain version run in f32 on the same
+# bf16 inputs: it computes in f32 and rounds once, so the two differ by at
+# most half a bf16 ulp (<= 2^-8 |out|) on top of the f32 tolerance.
+BF16_ROUND_TOL = (2e-5, 2e-5 + 2.0 ** -8)                  # atol, rtol
 launches = 0
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # q k v o; B Sq Sk H Hkv dh; 12 strides; causal window; scale; stream
 ARGTYPES = [_P] * 4 + [_I] * 6 + [_L] * 12 + [_I] * 2 + [ctypes.c_float, _P]
+_IP = ctypes.POINTER(ctypes.c_int)
+ENTRY_POINTS = {**{fn: ARGTYPES for fn in DTYPES.values()},
+                "flash_bf16_config": [_I, _IP, _IP]}
 
 
 def flash_attention_plain(q, k, v, *, causal=True, window=None):
@@ -66,6 +79,22 @@ def _check(q, k, v, causal, window):
             raise ValueError(f"{name}: the head_dim axis must be contiguous")
 
 
+def check_tma_layout(name, t):
+    """Raise ValueError unless TMA can read ``t`` ([B, S, heads, dh]): a
+    16-byte aligned base and batch / seq / head strides that are multiples
+    of 16 bytes.  A dimension of size 1 is never stepped, so its stride
+    is not checked."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: base address {t.data_ptr():#x} is not "
+                         f"16-byte aligned (TMA)")
+    for dim, axis in enumerate(("batch", "seq", "head")):
+        if t.shape[dim] > 1 and (t.stride(dim) * t.element_size()) % 16:
+            raise ValueError(
+                f"{name}: {axis} stride {t.stride(dim)} elements "
+                f"({t.stride(dim) * t.element_size()} bytes) is not a "
+                f"multiple of 16 bytes (TMA)")
+
+
 def flash_attention(q, k, v, *, causal=True, window=None):
     """q: [B, Sq, H, dh]; k/v: [B, Sk, Hkv, dh] (H % Hkv == 0), float32
     or bfloat16, read through their strides.  Returns [B, Sq, H, dh] in
@@ -78,12 +107,15 @@ def flash_attention(q, k, v, *, causal=True, window=None):
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     if dev.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda (or cpu: plain), not {dev}")
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            check_tma_layout(name, t)
     B, Sq, H, dh = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     out = torch.empty((B, Sq, H, dh), dtype=q.dtype, device=dev)
     if out.numel() == 0:
         return out
-    lib = build.load(NAME, {fn: ARGTYPES for fn in DTYPES.values()})
+    lib = build.load(NAME, ENTRY_POINTS)
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     scale = float(1.0 / np.sqrt(dh))
     with torch.cuda.device(dev):
@@ -95,3 +127,12 @@ def flash_attention(q, k, v, *, causal=True, window=None):
     build.check(NAME, rc)
     launches += 1
     return out
+
+
+def bf16_config(dh: int) -> dict:
+    """The bf16 kernel's launch configuration at head dim ``dh`` (CUDA
+    only; launches nothing): dynamic shared memory per CTA and CTAs per SM."""
+    smem, ctas = ctypes.c_int(), ctypes.c_int()
+    build.check(NAME, build.load(NAME, ENTRY_POINTS).flash_bf16_config(
+        dh, ctypes.byref(smem), ctypes.byref(ctas)))
+    return {"smem_bytes": smem.value, "ctas_per_sm": ctas.value}

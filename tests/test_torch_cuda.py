@@ -11,7 +11,9 @@ then copied to the card twice: one copy goes through the kernels, the
 other through the plain versions, and every array must be identical.
 The flash-attention kernel is held to its plain version at the JAX flash
 test's tolerances (f32 2e-5, bf16 2e-2); in bf16 also to the plain version
-run in f32 on the same inputs, within one bf16 rounding of the output.
+run in f32 on the same inputs, within one bf16 rounding of the output,
+over every head dim, the LM paths' short rows, windows, non-causal
+Sq != Sk and fused-projection views; a misaligned bf16 stride raises.
 """
 
 import numpy as np
@@ -107,11 +109,38 @@ def test_launch_counters_count_kernel_launches_only():
 
 
 FLASH_CASES = [  # B, Sq, Sk, H, Hkv, dh, causal, window
+    (1, 2, 2, 32, 8, 64, True, None),        # phase 8's shortest forward
     (1, 7, 7, 32, 8, 64, True, None),        # one partial query tile (S < 64)
+    (1, 43, 43, 32, 8, 64, True, None),      # phase 8's longest forward
     (1, 200, 200, 2, 1, 16, True, None),
+    (2, 130, 130, 4, 2, 32, True, 40),       # window inside one tile
     (2, 384, 384, 8, 2, 128, True, 64),
+    (2, 70, 130, 4, 2, 32, False, None),     # non-causal, Sq < Sk
+    (1, 190, 90, 4, 1, 64, False, None),     # non-causal, Sq > Sk
     (1, 300, 520, 4, 4, 256, False, 100),
 ]
+
+
+def qkv(shapes, dtype, seed):
+    rng = np.random.RandomState(seed)
+    return [torch.tensor(rng.randn(*shape), dtype=torch.float32)
+            .to(device="cuda", dtype=dtype) for shape in shapes]
+
+
+def check_flash(q, k, v, causal, window):
+    n = FA.launches
+    out = FA.flash_attention(q, k, v, causal=causal, window=window)
+    ref = FA.flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert FA.launches == n + 1
+    assert out.dtype == q.dtype and out.shape == q.shape
+    tol = 2e-2 if q.dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    if q.dtype == torch.bfloat16:
+        wide = FA.flash_attention_plain(q.float(), k.float(), v.float(),
+                                        causal=causal, window=window)
+        atol, rtol = FA.BF16_ROUND_TOL
+        torch.testing.assert_close(out.float(), wide, atol=atol, rtol=rtol)
 
 
 @pytest.mark.cuda
@@ -120,19 +149,34 @@ FLASH_CASES = [  # B, Sq, Sk, H, Hkv, dh, causal, window
 def test_flash_kernel_matches_plain(case, dtype):
     need_cuda()
     B, Sq, Sk, H, Hkv, dh, causal, window = case
-    rng = np.random.RandomState(dh)
-    q, k, v = (torch.tensor(rng.randn(*shape), dtype=torch.float32)
-               .to(device="cuda", dtype=dtype)
-               for shape in ((B, Sq, H, dh), (B, Sk, Hkv, dh), (B, Sk, Hkv, dh)))
+    q, k, v = qkv(((B, Sq, H, dh), (B, Sk, Hkv, dh), (B, Sk, Hkv, dh)),
+                  dtype, dh)
+    check_flash(q, k, v, causal, window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_flash_kernel_reads_fused_projection_views(dtype):
+    """q, k, v as [B,S,H,dh] views of one fused [B,S,(H+2Hkv)*dh]
+    projection: strided, head_dim contiguous, 16-byte aligned."""
+    need_cuda()
+    B, S, H, Hkv, dh = 2, 100, 8, 2, 64
+    (fused,) = qkv(((B, S, H + 2 * Hkv, dh),), dtype, 5)
+    q, k, v = fused[:, :, :H], fused[:, :, H:H + Hkv], fused[:, :, H + Hkv:]
+    assert not q.is_contiguous() and not k.is_contiguous()
+    check_flash(q, k, v, True, None)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_refuses_misaligned_bf16_stride():
+    """A seq stride of 2*64 + 4 elements (264 bytes) is not a multiple of
+    16 bytes: the bf16 kernel's TMA cannot read it, so the wrapper raises
+    naming that stride and launches nothing."""
+    need_cuda()
+    B, S, H, dh = 1, 16, 2, 64
+    (flat,) = qkv(((B, S, H * dh + 4),), torch.bfloat16, 6)
+    q = flat[:, :, :H * dh].unflatten(2, (H, dh))
     n = FA.launches
-    out = FA.flash_attention(q, k, v, causal=causal, window=window)
-    ref = FA.flash_attention_plain(q, k, v, causal=causal, window=window)
-    torch.cuda.synchronize()
-    assert FA.launches == n + 1
-    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
-    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
-    if dtype == torch.bfloat16:   # f32 math, one rounding: <= 2^-8 |out|
-        wide = FA.flash_attention_plain(q.float(), k.float(), v.float(),
-                                        causal=causal, window=window)
-        torch.testing.assert_close(out.float(), wide, atol=2e-5,
-                                   rtol=2e-5 + 2.0 ** -8)
+    with pytest.raises(ValueError, match=r"q: seq stride 132 elements"):
+        FA.flash_attention(q, q, q, causal=True)
+    assert FA.launches == n
