@@ -7,18 +7,22 @@ Phases (each raises on any failure, so the exit code is not 0):
 
   1. device and build: the card's name and power limit (nvidia-smi), and
      the kernels built from src/repro_torch/kernels/csrc with nvcc, all
-     at once; for each bf16 instantiation of the flash kernel, what
-     ptxas -v says (registers, spills, wgmma serialized or not), its
-     shared memory and CTAs per SM, and the HGMMA instructions in its
-     SASS (cuobjdump -sass), which must be there (and absent from the
-     f32 SIMT kernels);
+     at once (with the Selection kernel's stamped copy); for each bf16
+     instantiation of the flash kernel, what ptxas -v says (registers,
+     spills, wgmma serialized or not), its shared memory and CTAs per
+     SM, and the HGMMA instructions in its SASS (cuobjdump -sass), which
+     must be there (and absent from the f32 SIMT kernels);
   2. every kernel against its plain torch version on the card, bit for
      bit (zero mismatches in every output array): the TREE_SWEEP configs
      of tests/test_kernels_uct.py x p in {1, 4, 16} x G in {1, 8} with
      random active masks (BackUp with alternating signs on and off, with
      and without a straggler mask), the paper's Pong width (X=56,000,
      F=6, D=9, p=16, G in {1, 8}) and its Gomoku width (X=48,000, F=36,
-     D=5, puct, expand-all, p=16, G=1) on seeded random valid trees;
+     D=5, puct, expand-all, p=16, G=1) on seeded random valid trees, and
+     the Selection kernel's hazard cases of tests/test_torch_cuda.py
+     (tests/tree_cases.py: in-flight counts non-zero at launch,
+     p = 48, ln-table entries at the cap and at its low end, a fresh root
+     whose children all tie, the Gomoku width);
   3. the main path at Pong width: TreeParallelMCTS with the cuda executor
      against the numpy oracle executor on BanditTreeEnv, superstep by
      superstep until the tree holds X nodes; every selection and the
@@ -27,7 +31,14 @@ Phases (each raises on any failure, so the exit code is not 0):
   4. the main path timed: two run_step() calls (one re-rooting), phase
      times per superstep, supersteps per second, and each kernel's time
      per launch against its plain version and its bound, every timed
-     launch starting from the same arena state;
+     launch starting from the same arena state; uct_select's device
+     time at the Gomoku width, whose tree overflows L2; on a tree_floor
+     line, each tree kernel's latency floor (a one-thread pointer chase
+     over the main path's child array gives the card's dependent L2 load
+     latency and the device time of a launch of one load; the floor is
+     that launch plus one latency per further dependent level); and on
+     select_stamps lines, where a level of the Selection walk goes at both
+     widths (uct_select.cu built with its clock64 stamps);
   5. the flash-attention kernel against its plain version (the port's
      naive_attention) on the card: tests/test_flash_kernel.py's SHAPES x
      {f32, bf16} x window {None, 64}, the full-width head shapes of
@@ -67,7 +78,6 @@ import json
 import subprocess
 import sys
 import time
-from collections import deque
 from pathlib import Path
 
 import numpy as np
@@ -86,9 +96,6 @@ SWEEP = [   # tests/test_kernels_uct.py TREE_SWEEP
     dict(X=256, F=36, D=3, score_fn="puct", leaf_mode="unexpanded",
          expand_all=True),
 ]
-PONG = dict(X=56_000, F=6, D=9)
-GOMOKU = dict(X=48_000, F=36, D=5, score_fn="puct", leaf_mode="unexpanded",
-              expand_all=True)
 
 
 def emit(**kw):
@@ -146,68 +153,6 @@ def gpu_line() -> str:
 
 
 # ---------------------------------------------------------------------------
-# random valid trees (seeded numpy), built directly at any width
-# ---------------------------------------------------------------------------
-
-def random_tree(cfg, n_nodes: int, rng) -> dict:
-    """A structurally valid tree of `n_nodes` nodes grown breadth-first
-    (children in lanes 0..k-1 as insertion puts them; expand-all nodes
-    are all-or-nothing), with random statistics, small in-flight counts
-    and a few node visit counts past the ln-table cap."""
-    from repro_torch.core.tree import NULL, init_tree_arrays
-
-    X, F, D, Fp = cfg.X, cfg.F, cfg.D, cfg.Fp
-    a = init_tree_arrays(cfg)
-    child, depth = a["child"], a["node_depth"]
-    na, term, nexp = a["num_actions"], a["terminal"], a["num_expanded"]
-    size, frontier = 1, deque([0])
-    while frontier and size < n_nodes:
-        node = frontier.popleft()
-        if depth[node] >= D or term[node] or na[node] == 0:
-            continue
-        k = int(na[node])
-        if cfg.expand_all:
-            kids = k if rng.rand() < 0.85 else 0
-            if kids > n_nodes - size:
-                kids = 0
-        else:
-            kids = k if rng.rand() < 0.7 else rng.randint(0, k + 1)
-            kids = min(kids, n_nodes - size)
-        for lane in range(kids):
-            c = size
-            size += 1
-            child[node, lane] = c
-            depth[c] = depth[node] + 1
-            term[c] = int(rng.rand() < 0.05)
-            na[c] = 0 if term[c] else rng.randint(1, F + 1)
-            frontier.append(c)
-        nexp[node] = kids
-    has = child != NULL
-    a["edge_N"] = np.where(has & (rng.rand(X, Fp) < 0.9),
-                           rng.randint(1, 60, (X, Fp)), 0).astype(np.int32)
-    a["edge_W"] = (a["edge_N"] * rng.randint(-65536, 65537, (X, Fp))
-                   ).astype(np.int32)
-    a["edge_VL"] = np.where(has, rng.choice([0, 0, 0, 1, 2], (X, Fp)),
-                            0).astype(np.int32)
-    a["edge_P"] = np.where(np.arange(Fp) < na[:, None],
-                           rng.randint(0, 65537, (X, Fp)), 0).astype(np.int32)
-    live = np.arange(X) < size
-    a["node_N"] = np.where(live, rng.randint(0, 400, X), 0).astype(np.int32)
-    a["node_N"][rng.randint(0, size, 3)] = 3 * X      # past the ln-table cap
-    a["node_O"] = np.where(live, rng.choice([0, 0, 1], X), 0).astype(np.int32)
-    a["size"] = np.int32(size)
-    return a
-
-
-def random_arena(cfg, G: int, rng, fill=None) -> dict:
-    slots = []
-    for _ in range(G):
-        n = fill if fill is not None else rng.randint(cfg.X // 2, cfg.X + 1)
-        slots.append(random_tree(cfg, n, rng))
-    return {k: np.stack([s[k] for s in slots]) for k in slots[0]}
-
-
-# ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
@@ -229,15 +174,16 @@ def compare_trees(kernel: str, x, y, fields) -> int:
     return bad
 
 
-def check_case(cfg, G, p, rng, fill=None) -> int:
+def check_case(cfg, arrays, p, rng) -> int:
     """Select, then backup with alternating signs on and off and with and
-    without a straggler mask, kernel vs plain, on one random arena.
+    without a straggler mask, kernel vs plain, on one arena (numpy arrays
+    with a leading [G] axis; a random active mask when G > 1).
     Returns the number of mismatching elements."""
     from repro_torch.core import intree
     from repro_torch.core.tree import from_numpy, to_numpy
     from repro_torch.kernels import uct_backup, uct_select
 
-    arrays = random_arena(cfg, G, rng, fill)
+    G = arrays["child"].shape[0]
     active = (rng.rand(G) < 0.7).astype(np.int32)
     if G > 1:
         active[rng.randint(G)] = 0
@@ -271,31 +217,41 @@ def check_case(cfg, G, p, rng, fill=None) -> int:
 
 def phase_kernels() -> int:
     from repro_torch.core.tree import TreeConfig
+    import tree_cases
 
     rng = np.random.RandomState(0)
-    total, cases = 0, 0
+    total, n = 0, 0
     for kw in SWEEP:
         cfg = TreeConfig(**kw)
         for p in (1, 4, 16):
             for G in (1, 8):
-                bad = check_case(cfg, G, p, rng)
+                bad = check_case(cfg, tree_cases.random_arena(cfg, G, rng), p, rng)
                 emit(phase="kernels", case=f"X{cfg.X}-F{cfg.F}-D{cfg.D}-"
                      f"{cfg.vl_mode}-{cfg.score_fn}", p=p, G=G, mismatches=bad)
                 total += bad
-                cases += 1
-    for name, kw, G in (("pong", PONG, 1), ("pong", PONG, 8),
-                        ("gomoku", GOMOKU, 1)):
+                n += 1
+    for name, kw, G in (("pong", tree_cases.PONG, 1),
+                        ("pong", tree_cases.PONG, 8),
+                        ("gomoku", tree_cases.GOMOKU, 1)):
         cfg = TreeConfig(**kw)
         t0 = time.perf_counter()
-        bad = check_case(cfg, G, 16, rng, fill=cfg.X - 50)
+        arrays = tree_cases.random_arena(cfg, G, rng, fill=cfg.X - 50)
+        bad = check_case(cfg, arrays, 16, rng)
         emit(phase="kernels", case=name, X=cfg.X, Fp=cfg.Fp, D=cfg.D, p=16,
              G=G, mismatches=bad, seconds=round(time.perf_counter() - t0, 3))
         total += bad
-        cases += 1
+        n += 1
+    for name in tree_cases.HAZARDS:   # tests/test_torch_cuda.py's hazard cases
+        cfg, arrays, p = tree_cases.hazard(name)
+        bad = check_case(cfg, tree_cases.as_slot(arrays), p, rng)
+        emit(phase="kernels", case=f"hazard:{name}", X=cfg.X, Fp=cfg.Fp,
+             D=cfg.D, p=p, G=1, mismatches=bad)
+        total += bad
+        n += 1
     if total:
         raise AssertionError(f"kernels disagree with their plain versions: "
                              f"{total} mismatching elements")
-    return cases
+    return n
 
 
 # ---------------------------------------------------------------------------
@@ -306,6 +262,7 @@ def phase_main_path():
     from repro_torch.core import TreeConfig, TreeParallelMCTS
     from repro_torch.envs import BanditTreeEnv, BanditValueBackend
     from repro_torch.kernels import uct_backup, uct_select
+    from tree_cases import PONG
 
     cfg = TreeConfig(**PONG)
     mk = lambda ex: TreeParallelMCTS(
@@ -396,6 +353,7 @@ def phase_timed():
     from repro_torch.core import TreeConfig, TreeParallelMCTS
     from repro_torch.envs import BanditTreeEnv, BanditValueBackend
     from repro_torch.kernels import uct_backup, uct_select
+    from tree_cases import PONG
 
     cfg = TreeConfig(**PONG)
     m = TreeParallelMCTS(cfg, BanditTreeEnv(fanout=6, terminal_depth=12),
@@ -466,12 +424,125 @@ def restorer(tree, fields):
     return lambda: [getattr(tree, k).copy_(v) for k, v in saved.items()]
 
 
+def chase(tree) -> dict:
+    """The card's dependent L2 load latency and the device time of a
+    launch, from uct_select.cu's one-thread pointer chase
+    (uct_chase_launch) over slot 0's child array, with the strong loads
+    the selection walk waits on: `latency_ns` from CUDA events at two chain
+    lengths, so that the launch cancels out, and `one_load_device_ms`, the
+    profiler's device time of a launch that chases one load."""
+    import ctypes
+    from repro_torch.kernels import build, uct_select
+
+    lib = build.load(uct_select.NAME, {f"{uct_select.NAME}_launch": uct_select.ARGTYPES})
+    fn = lib.uct_chase_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    child, start = tree.child[0], int(tree.root[0])
+    out = torch.empty(1, dtype=torch.int32, device=DEV)
+    stream = torch.cuda.current_stream().cuda_stream
+    run = lambda steps: build.check("uct_chase", fn(
+        child.data_ptr(), child.shape[1], start, steps, out.data_ptr(), stream))
+    none = lambda: None
+    n1, n2 = 2_000, 20_000
+    t1 = cuda_time_ms(lambda: run(n1), none, 5)
+    t2 = cuda_time_ms(lambda: run(n2), none, 5)
+    return {"latency_ns": 1e6 * (t2 - t1) / (n2 - n1),
+            "one_load_device_ms": device_ms(lambda: run(1), none, 50,
+                                            "uct_chase_kernel")}
+
+
+# uct_select.cu's clock64 stretches (its -DUCT_SELECT_STAMPS note); the
+# first six repeat once per level walked
+STAMPS = ("leaf_test", "row_wait_child_loads", "ln_wait", "score_argmax",
+          "nxt_reds_stores", "next_loads_shuffles", "worker_end", "assign")
+
+
+def select_stamps(cfg, tree, act, p: int, reset, width: str) -> None:
+    """Where a level of the Selection walk goes on `tree`: uct_select.cu
+    built with its clock64 stamps (build.VARIANTS: uct_select_stamps),
+    launched through the wrapper five times, each after reset().  Emits
+    thread 0 of slot 0's cycles per stretch in the last launch: per level
+    walked for the level stretches, per worker for a worker's end, and
+    the assignment's, with the SM clock nvidia-smi reads just after.  The
+    stamped copy's outputs must equal the uninstrumented kernel's."""
+    import ctypes
+    from repro_torch.core import intree
+    from repro_torch.kernels import build, uct_select
+
+    stamped = build.load("uct_select_stamps", {
+        "uct_select_launch": uct_select.ARGTYPES,
+        "uct_select_cycles_read": [ctypes.c_void_p]})
+    reset()
+    ref = uct_select.select_arena(cfg, tree, act, p)
+    ref_tree = [getattr(tree, k).clone() for k in ("edge_VL", "node_O")]
+    plain, n = build._loaded[uct_select.NAME], uct_select.launches
+    build._loaded[uct_select.NAME] = stamped   # the wrapper loads it by name
+    try:
+        for _ in range(5):
+            reset()
+            sel = uct_select.select_arena(cfg, tree, act, p)
+        torch.cuda.synchronize()
+    finally:
+        build._loaded[uct_select.NAME], uct_select.launches = plain, n
+    same = all(torch.equal(getattr(sel, k), getattr(ref, k))
+               for k in intree.SEL_FIELDS) and all(
+        torch.equal(getattr(tree, k), v)
+        for k, v in zip(("edge_VL", "node_O"), ref_tree))
+    if not same:
+        raise AssertionError(f"uct_select_stamps differs from uct_select ({width})")
+    cycles = (ctypes.c_longlong * len(STAMPS))()
+    build.check("uct_select_stamps", stamped.uct_select_cycles_read(cycles))
+    mhz = int(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    levels = int(sel.depths[0].sum().item())
+    per_level = {k: cycles[i] / levels for i, k in enumerate(STAMPS[:6])}
+    emit(phase="select_stamps", width=width, identical=True,
+         shape=f"G=1 X={cfg.X} Fp={cfg.Fp} D={cfg.D} p={p}", levels=levels,
+         total_cycles=sum(cycles), sm_clock_mhz=mhz,
+         cycles_per_level=per_level,
+         level_cycles=sum(per_level.values()),
+         level_us=sum(per_level.values()) / mhz,
+         worker_end_cycles_per_worker=cycles[6] / p, assign_cycles=cycles[7])
+
+
+def gomoku_select() -> dict:
+    """uct_select's device ms per launch at the paper's Gomoku width (G=1,
+    X=48,000, Fp=64, D=5, puct, expand-all, p=16) on a seeded random tree
+    of X - 50 nodes, whose 61 MB of tree arrays overflow the 50 MB L2;
+    every timed launch starts from the same tree.  Also where its levels
+    go (select_stamps)."""
+    from repro_torch.core.tree import TreeConfig, from_numpy
+    from repro_torch.kernels import uct_select
+    from tree_cases import GOMOKU, random_arena
+
+    cfg, p = TreeConfig(**GOMOKU), 16
+    arrays = random_arena(cfg, 1, np.random.RandomState(2), fill=cfg.X - 50)
+    ta = from_numpy(arrays, DEV)
+    act = torch.ones(1, dtype=torch.int32, device=DEV)
+    reset = restorer(ta, ("edge_VL", "node_O"))
+    dev = device_ms(lambda: uct_select.select_arena(cfg, ta, act, p), reset,
+                    50, "uct_select_kernel")
+    reset()
+    levels = int(uct_select.select_arena(cfg, ta, act, p).depths.sum().item())
+    select_stamps(cfg, ta, act, p, reset, "gomoku")
+    return {"gomoku_device_ms": dev, "gomoku_levels": levels,
+            "gomoku_shape": f"G=1 X={cfg.X} Fp={cfg.Fp} D={cfg.D} p={p}"}
+
+
 def kernel_rows(mc, main_launches) -> list:
     """Per-launch times at the main path's shape (Pong, G=1, p=16) on a
     copy of the main path's final tree.  Every timed Selection starts
     from that tree and every timed BackUp from the tree one Selection and
     Insertion later, so all timed launches walk the paths the bound is
-    computed from."""
+    computed from.  The rows hold what this run measured and counted, and
+    the bound; the latency floors derived from them go on a tree_floor
+    line: a launch that chases one load (chase), then one dependent L2
+    load latency per further level of the kernel's chain (Selection: the
+    levels this run walked; BackUp: 2, the path's read and then its
+    atomics, by its code)."""
     from repro_torch.core import intree
     from repro_torch.core.tree import as_arena, from_numpy
     from repro_torch.kernels import uct_backup, uct_select
@@ -488,6 +559,7 @@ def kernel_rows(mc, main_launches) -> list:
         warm=1)
     dev_sel = device_ms(lambda: uct_select.select_arena(cfg, ta, act, p),
                         reset_sel, 50, "uct_select_kernel")
+    select_stamps(cfg, ta, act, p, reset_sel, "pong")
 
     reset_sel()
     sel = uct_select.select_arena(cfg, ta, act, p)
@@ -506,14 +578,24 @@ def kernel_rows(mc, main_launches) -> list:
 
     sb, so, levels = select_bound(cfg, sel, 1)
     bb, bo = backup_bound(cfg, sel, 1)
+    lat = chase(ta)
+    floors = {}
+    for name, n, dev in (("uct_select", levels, dev_sel),
+                         ("uct_backup", 2, dev_bak)):
+        one = lat["one_load_device_ms"]
+        fl = None if one is None else one + (n - 1) * lat["latency_ns"] * 1e-6
+        floors[name] = dict(levels=n, device_ms=dev, floor_ms=fl,
+                            floor_share=None if fl is None or not dev else fl / dev,
+                            us_per_level=None if dev is None else 1e3 * dev / n)
+    emit(phase="tree_floor", **lat, **floors)
     rows = []
     for name, src, rep, ms, plain, nbytes, ops, extra in (
         ("uct_select", "src/repro_torch/kernels/csrc/uct_select.cu",
          "src/repro/kernels/uct_select.py:183", ms_sel, plain_sel, sb, so,
-         {"latency_chain_levels": levels, "device_ms": dev_sel}),
+         {"device_ms": dev_sel, "levels": levels, **lat, **gomoku_select()}),
         ("uct_backup", "src/repro_torch/kernels/csrc/uct_backup.cu",
          "src/repro/kernels/uct_backup.py:141", ms_bak, plain_bak, bb, bo,
-         {"device_ms": dev_bak}),
+         {"device_ms": dev_bak, **lat}),
     ):
         t_bytes = 1e3 * nbytes / H100_HBM_BYTES_PER_S
         t_ops = 1e3 * ops / H100_F32_OPS_PER_S
@@ -978,16 +1060,18 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT / "tests"))     # tree_cases: seeded trees
     from repro_torch.kernels import build
 
     t_start = time.perf_counter()
     gpu = gpu_line()
     print(gpu, flush=True)
     t0 = time.perf_counter()
-    logs = build.build_all()
+    logs = build.build_all(build.KERNELS + tuple(build.VARIANTS))
     secs = time.perf_counter() - t0
-    ptxas = [ln.strip() for log in logs.values() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln]
+    ptxas = {name: [ln.strip() for ln in log.splitlines()
+                    if "registers" in ln or "spill" in ln]
+             for name, log in logs.items()}
     emit(phase="build", seconds=round(secs, 3), built=sorted(logs), ptxas=ptxas)
     flash_build_report()
 

@@ -26,6 +26,10 @@ KERNELS = ("uct_select", "uct_backup", "flash_attention")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
+# name -> (source, extra nvcc flags) of a library built from another
+# kernel's source: chip_smoke.py's copy of the Selection kernel with its
+# clock64 stamps compiled in (the wrappers never load it)
+VARIANTS = {"uct_select_stamps": ("uct_select", ["-DUCT_SELECT_STAMPS"])}
 
 _loaded: dict = {}
 
@@ -42,8 +46,9 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    source, extra = VARIANTS.get(name, (name, []))
+    src = (CSRC / f"{source}.cu").read_bytes()
+    h = hashlib.sha256(src + " ".join(NVCC_FLAGS + extra).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{h}.so"
 
 
@@ -52,7 +57,9 @@ def _start(name: str):
     out = library_path(name)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    source, extra = VARIANTS.get(name, (name, []))
+    cmd = [nvcc_path(), *NVCC_FLAGS, *extra, "-o", str(tmp),
+           str(CSRC / f"{source}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out

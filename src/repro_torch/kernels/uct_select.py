@@ -30,6 +30,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # 21 pointers; G X Fp D p L wu vl_const_fx puct; beta; leaf_partial
 # expand_all; stream
 ARGTYPES = [_P] * 21 + [_I] * 9 + [_F, _I, _I, _P]
+# csrc/uct_select.cu keeps each worker's leaf, depth and the leaf's three
+# scalars in dynamic shared memory (SMEM_INTS_PER_WORKER = 5 ints); an
+# H100 block may have at most 227 KB of it.
+SMEM_BYTES_PER_WORKER = 20
+SMEM_BYTES_MAX = 227 * 1024
 
 
 def select_arena_plain(cfg: TreeConfig, arena: UCTree, active, p: int):
@@ -57,6 +62,15 @@ def check_arena(arena: UCTree, fields, G: int | None = None) -> tuple:
         check_tensor(k, getattr(arena, k), shapes[k],
                      torch.float32 if k == "log_table" else torch.int32, dev)
     return G, X, Fp, dev
+
+
+def check_shared_memory(p: int) -> None:
+    """Raise unless the kernel's shared memory for p workers fits a block."""
+    if p * SMEM_BYTES_PER_WORKER > SMEM_BYTES_MAX:
+        raise ValueError(
+            f"p={p} needs {p * SMEM_BYTES_PER_WORKER} B of shared memory, past "
+            f"the 227 KB ({SMEM_BYTES_MAX} B) a block may have: p <= "
+            f"{SMEM_BYTES_MAX // SMEM_BYTES_PER_WORKER}")
 
 
 def check_tensor(name: str, t, shape: tuple, dtype, device) -> None:
@@ -95,6 +109,7 @@ def select_arena(cfg: TreeConfig, arena: UCTree, active: torch.Tensor,
         return select_arena_plain(cfg, arena, active, p)
     if dev.type != "cuda":
         raise ValueError(f"uct_select runs on cuda (or cpu: plain), not {dev}")
+    check_shared_memory(p)
 
     lib = build.load(NAME, {f"{NAME}_launch": ARGTYPES})
     D = cfg.D

@@ -8,7 +8,8 @@ numpy and repro_torch, so it runs where jax is not installed:
 
 Trees are grown with the port's plain ops on the CPU from a numpy seed,
 then copied to the card twice: one copy goes through the kernels, the
-other through the plain versions, and every array must be identical.
+other through the plain versions, and every array must be identical;
+the Selection kernel also on its hazard cases (tests/tree_cases.py).
 The flash-attention kernel is held to its plain version at the JAX flash
 test's tolerances (f32 2e-5, bf16 2e-2); in bf16 also to the plain version
 run in f32 on the same inputs, within one bf16 rounding of the output,
@@ -23,8 +24,9 @@ import torch
 from repro_torch.core import fixedpoint as fx
 from repro_torch.core import intree
 from repro_torch.core.tree import NULL, TreeConfig, from_numpy, init_arena, to_numpy
-from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import uct_backup, uct_select
+from repro_torch.kernels import flash_attention as FA
+import tree_cases
 
 SWEEP = [   # tests/test_kernels_uct.py TREE_SWEEP
     TreeConfig(X=64, F=2, D=3),
@@ -91,6 +93,49 @@ def test_kernels_match_plain(cfg, p):
                                           alternating, dropped)
             for k in TREE_FIELDS:
                 assert torch.equal(getattr(bk, k), getattr(bp, k)), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(tree_cases.HAZARDS))
+def test_select_kernel_matches_plain_on_hazards(name):
+    """The Selection kernel's hazards (tests/tree_cases.py): in-flight counts
+    non-zero at launch, p = 48 workers over one warp's 32 lanes, ln-table
+    entries at the cap 2X+3 and at its low end, a fresh root whose
+    children all tie at FX_FORCE_EXPLORE, and the Gomoku width (X=48,000,
+    Fp=64, D=5, puct, expand-all), one slot each."""
+    need_cuda()
+    cfg, arrays, p = tree_cases.hazard(name)
+    arrays = tree_cases.as_slot(arrays)
+    active = torch.ones(1, dtype=torch.int32, device="cuda")
+    tk, tp = from_numpy(arrays, "cuda"), from_numpy(arrays, "cuda")
+    sk = uct_select.select_arena(cfg, tk, active, p)
+    sp = uct_select.select_arena_plain(cfg, tp, active, p)
+    for k in intree.SEL_FIELDS:
+        assert torch.equal(getattr(sk, k), getattr(sp, k)), k
+    for k in TREE_FIELDS:
+        assert torch.equal(getattr(tk, k), getattr(tp, k)), k
+
+
+@pytest.mark.cuda
+def test_select_kernel_refuses_p_past_shared_memory():
+    """The kernel keeps 20 B a worker in shared memory: the wrapper refuses
+    p past the 227 KB (232,448 B) a block may have before launching, and
+    does not count it; the largest p that fits runs."""
+    need_cuda()
+    cfg = SWEEP[0]
+    arena = init_arena(cfg, 1, device="cuda")
+    act = torch.ones(1, dtype=torch.int32, device="cuda")
+    p_max = 232_448 // 20
+    n = uct_select.launches
+    with pytest.raises(ValueError, match=f"p={p_max + 1} needs .* 227 KB"):
+        uct_select.select_arena(cfg, arena, act, p_max + 1)
+    assert uct_select.launches == n
+    sel = uct_select.select_arena(cfg, arena, act, p_max)
+    torch.cuda.synchronize()
+    assert uct_select.launches == n + 1
+    # a fresh root is every worker's leaf: its F actions go to the first F
+    assert sel.expand_action[0, :cfg.F].tolist() == list(range(cfg.F))
+    assert int(sel.n_insert.sum()) == cfg.F
 
 
 @pytest.mark.cuda

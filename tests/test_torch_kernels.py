@@ -3,7 +3,8 @@
 On CPU tensors the wrappers run their plain versions; here they are held
 bit for bit against the JAX package's Pallas kernels in interpret mode
 (repro.kernels.ops) on a few small cases, and against repro.core.intree
-on the full TREE_SWEEP x p sweep.  The wrappers must refuse a wrong
+on the full TREE_SWEEP x p sweep and the Selection kernel's hazard
+cases (tests/tree_cases.py).  The wrappers must refuse a wrong
 dtype, shape, device or layout.  The CUDA kernels themselves are held
 against the plain versions by tests/test_torch_cuda.py, which needs a card
 (and by chip_smoke.py).
@@ -18,14 +19,16 @@ import torch
 
 from repro.core import fixedpoint as jfx
 from repro.core import intree as jintree
+from repro.core import tree as jtree
 from repro.kernels import ops as jkops
 from repro_torch.core import intree as tintree
 from repro_torch.core.tree import (
     TreeConfig as TCfg, as_arena, from_numpy, init_arena, to_numpy,
 )
+from repro_torch.kernels import build, uct_backup, uct_select
 from repro_torch.kernels import ops as tkops
-from repro_torch.kernels import uct_backup, uct_select
 from test_kernels_uct import TREE_SWEEP, grow_tree
+import tree_cases
 
 CFG_IDS = lambda c: f"F{c.F}-D{c.D}-{c.vl_mode}-{c.score_fn}"
 FIELDS = ("edge_N", "edge_W", "edge_VL", "node_N", "node_O")
@@ -109,6 +112,24 @@ def test_wrappers_match_jax_intree(cfg, p):
                                       np.asarray(getattr(jb, k)), err_msg=k)
 
 
+@pytest.mark.parametrize("name", list(tree_cases.HAZARDS))
+def test_select_matches_jax_intree_on_hazards(name):
+    """The Selection kernel's hazard cases (tests/tree_cases.py), which the
+    card holds the kernel to its plain version on: here the plain version
+    (the wrapper on CPU tensors) against repro.core.intree."""
+    tcfg, arrays, p = tree_cases.hazard(name)
+    cfg = jtree.TreeConfig(**dataclasses.asdict(tcfg))
+    jt = jtree.UCTree(**{k: jnp.asarray(v) for k, v in arrays.items()})
+    jt, jsel = jintree.select_batch(cfg, jt, p)
+    ta = as_arena(from_numpy(arrays, "cpu"))
+    tsel = uct_select.select_arena(tcfg, ta, one(), p)
+    for k in tintree.SEL_FIELDS:
+        np.testing.assert_array_equal(getattr(tsel, k).numpy()[0],
+                                      np.asarray(getattr(jsel, k)), err_msg=k)
+    np.testing.assert_array_equal(ta.edge_VL.numpy()[0], np.asarray(jt.edge_VL))
+    np.testing.assert_array_equal(ta.node_O.numpy()[0], np.asarray(jt.node_O))
+
+
 def _small():
     cfg = TCfg(X=32, F=4, D=3)
     return cfg, init_arena(cfg, 2, device="cpu"), torch.ones(2, dtype=torch.int32)
@@ -131,6 +152,30 @@ def test_select_wrapper_rejects_bad_inputs():
             uct_select.select_arena(cfg, a, act, 2)
     with pytest.raises(ValueError, match="cfg"):
         uct_select.select_arena(TCfg(X=64, F=4, D=3), arena, act, 2)
+
+
+def test_select_shared_memory_limit():
+    """The check select_arena makes before a launch on the card: 20 B of
+    shared memory a worker within the 227 KB of a block, so p <= 11,622.
+    The plain version on CPU tensors has no such limit."""
+    uct_select.check_shared_memory(232_448 // 20)
+    with pytest.raises(ValueError, match="p=11623 needs 232460 B .* 227 KB"):
+        uct_select.check_shared_memory(232_448 // 20 + 1)
+
+
+def test_stamped_selection_builds_apart():
+    """chip_smoke.py's stamped copy of the Selection kernel is uct_select.cu
+    built with -DUCT_SELECT_STAMPS into a library of its own name and
+    hash, so the wrapper, which loads uct_select by name, never gets it."""
+    source, flags = build.VARIANTS["uct_select_stamps"]
+    assert (source, flags) == (uct_select.NAME, ["-DUCT_SELECT_STAMPS"])
+    plain = build.library_path(uct_select.NAME)
+    stamped = build.library_path("uct_select_stamps")
+    assert plain.name.startswith("libuct_select-")
+    assert stamped.name.startswith("libuct_select_stamps-")
+    assert plain.name[-19:] != stamped.name[-19:]          # the hash
+    text = (build.CSRC / f"{source}.cu").read_text()
+    assert "#ifdef UCT_SELECT_STAMPS" in text and "uct_select_cycles_read" in text
 
 
 def test_backup_wrapper_rejects_bad_inputs():
