@@ -64,7 +64,26 @@ Phases (each raises on any failure, so the exit code is not 0):
      held superstep by superstep against the numpy oracle executor
      replaying the recorded env steps and values; then where its
      superstep goes (one expansion's forward, a decode step, the host
-     numpy work per vocabulary row), with device busy shares.
+     numpy work per vocabulary row), with device busy shares;
+  9. the serving path at the paper's Pong width: one SearchClient
+     (executor "cuda", G=16 slots, p=16, weighted-queue-depth policy,
+     compaction below half occupancy, vector expansion) over two shape
+     classes (X=56,000 and X=28,000, F=6, D=9) on BanditTreeEnv: a
+     seeded stream of 32 requests (budgets 64-192 supersteps a move, 1-3
+     moves), one cancelled mid-flight, one evicted by a deadline it
+     cannot meet, and one that resurrects the half-size class's retired
+     pool; every SearchResult must equal a numpy-oracle client's on the
+     same stream, sessions must have gathered and scattered, Simulation
+     must have been fused across the pools, and each tree kernel must
+     have launched once per pool tick; searches/s, ticks, ms per tick by
+     phase (untraced, and from a traced run that must also be
+     identical); a retired pool must free its arena's memory; the
+     relaxed and wavefront executors on the card against themselves on
+     the CPU over a short stream; the tree kernels' device time at G=16
+     and at a session's 8 slots; Node Insertion (which must not
+     synchronise: insert_dev under CUDA's sync debug mode "error"),
+     beside its earlier nonzero() form, and finalize, at the main path's
+     shape.
 
 It prints JSON lines; the line before the last is {"kernels": [...]} and
 the last is {"ok": true, "device": {...}}.  It imports nothing of the JAX
@@ -1055,6 +1074,374 @@ def phase_lm_costs(cfg, params, env, state):
     emit(phase="lm_costs", state_len=int(state[0]), **host, **out)
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the serving path at the paper's Pong width
+# ---------------------------------------------------------------------------
+
+SERVE_G, SERVE_P = 16, 16
+SERVE_RETIRE_TICKS = 8
+CANCEL_UID, DEADLINE_UID, LATE_UID = 2, 32, 33
+
+
+def serving_stream(seed: int = 0) -> list:
+    """The phase's seeded request stream: 32 requests alternating between
+    the two shape classes; the Pong class (0) with budgets of 64-192
+    supersteps a move and 1-3 moves, the half-size class (1) with 64-96
+    and one move, so that it drains and retires while class 0 still
+    runs; every eighth keeps its tree.  The request to cancel plays 3
+    moves."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for i in range(32):
+        cls = i % 2
+        out.append(dict(uid=i, seed=int(rng.randint(1 << 20)), cls=cls,
+                        budget=int(rng.randint(64, 193 if cls == 0 else 97)),
+                        moves=int(rng.randint(1, 4)) if cls == 0 else 1,
+                        keep_tree=i % 8 == 0))
+    out[CANCEL_UID]["moves"] = 3
+    return out
+
+
+def serving_classes():
+    from repro_torch.core import TreeConfig
+    from tree_cases import PONG
+
+    return [TreeConfig(**PONG), TreeConfig(**dict(PONG, X=28_000))]
+
+
+def serving_client(executor: str, device=None, **kw):
+    from repro_torch.envs import BanditTreeEnv, BanditValueBackend
+    from repro_torch.service import SearchClient
+
+    return SearchClient(BanditTreeEnv(fanout=6, terminal_depth=12),
+                        BanditValueBackend(), G=SERVE_G, p=SERVE_P,
+                        executor=executor, policy="weighted-queue-depth",
+                        compact_threshold=0.5,
+                        retire_after_ticks=SERVE_RETIRE_TICKS,
+                        expansion="vector",
+                        device=DEV if device is None else device, **kw)
+
+
+def drive_stream(cl, stream) -> dict:
+    """Submit the stream (plus one request whose deadline it cannot
+    meet), cancel one request after its first move, wait for the
+    half-size class's pool to retire, submit one more request to it
+    (resurrecting it), and drain.  Returns {uid: SearchResult}."""
+    from repro_torch.core.tree import bucket_key
+    from repro_torch.service import SearchRequest
+
+    cfgs = serving_classes()
+    mk = lambda r: SearchRequest(uid=r["uid"], seed=r["seed"],
+                                 budget=r["budget"], moves=r["moves"],
+                                 keep_tree=r["keep_tree"], cfg=cfgs[r["cls"]])
+    handles = [cl.submit(mk(r)) for r in stream]
+    handles.append(cl.submit(mk(dict(uid=DEADLINE_UID, seed=7, cls=0,
+                                     budget=192, moves=3, keep_tree=False)),
+                             deadline_supersteps=100))
+    if not cl.run_until(lambda c: len(c.core.move_log.get(CANCEL_UID, [])) >= 1):
+        raise AssertionError("the request to cancel never committed a move")
+    if not handles[CANCEL_UID].cancel():
+        raise AssertionError("cancel() of an in-flight request failed")
+    key1 = bucket_key(cfgs[1])
+    if not cl.run_until(lambda c: c.core.pools[key1].retired):
+        raise AssertionError("the half-size class's pool never retired")
+    handles.append(cl.submit(mk(dict(uid=LATE_UID, seed=11, cls=1, budget=64,
+                                     moves=1, keep_tree=True))))
+    if cl.core.pools[key1].retired:
+        raise AssertionError("a submit did not resurrect the retired pool")
+    return {h.uid: h.result() for h in handles}
+
+
+def results_identical(got: dict, want: dict, label: str) -> int:
+    """Raise unless every SearchResult is identical (actions, rewards,
+    visit counts, supersteps, flags, every tree snapshot field); returns
+    the number of results compared."""
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{label}: different requests completed")
+    for uid, b in want.items():
+        a = got[uid]
+        same = ((a.actions, a.rewards, a.supersteps, a.terminal, a.cancelled,
+                 a.deadline_evicted) == (b.actions, b.rewards, b.supersteps,
+                                         b.terminal, b.cancelled,
+                                         b.deadline_evicted)
+                and len(a.visit_counts) == len(b.visit_counts)
+                and all(np.array_equal(x, y) for x, y in
+                        zip(a.visit_counts, b.visit_counts))
+                and (a.tree_snapshot is None) == (b.tree_snapshot is None)
+                and all(np.array_equal(a.tree_snapshot[k], b.tree_snapshot[k])
+                        for k in (b.tree_snapshot or {})))
+        if not same:
+            raise AssertionError(f"{label}: uid={uid} differs")
+    return len(want)
+
+
+def phase_serving(mc) -> dict:
+    """SearchClient at the paper's Pong width (G=16, p=16, cuda executor)
+    over two shape classes, held to the numpy-oracle client request for
+    request; the same stream traced (ms per tick by phase, and tracing
+    must not change a result); relaxed and wavefront on the card held to
+    themselves on the CPU; then the tree kernels at G=16 and at the
+    largest session width, Node Insertion and finalize at the main
+    path's shape, and a retired pool's freed memory.  Returns the tree
+    kernels' launches and their serving-shape device times."""
+    from repro_torch.kernels import uct_backup, uct_select
+
+    t_phase = time.perf_counter()
+    stream = serving_stream()
+    uct_select.launches = uct_backup.launches = 0
+    cl = serving_client("cuda")
+    t0 = time.perf_counter()
+    got = drive_stream(cl, stream)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"uct_select": uct_select.launches,
+                "uct_backup": uct_backup.launches}
+    stats, core = cl.stats, cl.core
+    pools = list(core.pools.values())
+    summaries = [{k: v for k, v in s.items() if k != "cfg"}
+                 for s in cl.pool_summaries()]
+    freed = retired_bytes(core)
+    cl.close()
+
+    t1 = time.perf_counter()
+    ref = serving_client("reference")
+    want = drive_stream(ref, stream)
+    ref_s = time.perf_counter() - t1
+    ref_ticks = ref.core.ticks
+    ref.close()
+    n = results_identical(got, want, "cuda vs the numpy oracle")
+    checks = {
+        "launches_per_pool_tick": all(v == stats.supersteps
+                                      for v in launches.values()),
+        "session_gathers": stats.session_gathers >= 1,
+        "session_scatters": stats.session_scatters >= 1,
+        "retire_resurrect": stats.retirements >= 1,
+        "xpool_batches": core.xpool_batches > 0,
+        "cancelled": got[CANCEL_UID].cancelled,
+        "deadline_evicted": got[DEADLINE_UID].deadline_evicted,
+        "same_ticks": core.ticks == ref_ticks,
+    }
+    ticks = core.ticks
+    emit(phase="serving", executor="cuda", G=SERVE_G, p=SERVE_P,
+         classes=[dict(X=c.X, F=c.F, D=c.D) for c in serving_classes()],
+         requests=n, identical=True, checks=checks, wall_s=wall,
+         searches_per_s=n / wall, ticks=ticks, ticks_per_s=ticks / wall,
+         supersteps=stats.supersteps, launches=launches,
+         xpool_batches=core.xpool_batches, xpool_rows_max=core.xpool_rows_max,
+         session_gathers=stats.session_gathers,
+         session_scatters=stats.session_scatters,
+         session_reuses=stats.session_reuses,
+         compacted_supersteps=stats.compacted_supersteps,
+         retirements=stats.retirements, retired_arena_bytes_freed=freed,
+         ms_per_tick={k: 1e3 * getattr(stats, "t_" + k) / ticks
+                      for k in ("intree", "expand", "host", "sim")},
+         occupancy=stats.occupancy_sum / max(stats.supersteps, 1),
+         reference_s=ref_s, pools=summaries)
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"serving phase checks failed: {bad} "
+                             f"(launches {launches}, supersteps "
+                             f"{stats.supersteps})")
+    if not all(freed):
+        raise AssertionError(f"retire() did not free the arena: {freed}")
+
+    traced_phases(stream, want)
+    variants = {v: variant_stream(v) for v in ("relaxed", "wavefront")}
+    kernels = serving_kernel_times(mc)
+    insert_finalize_times(mc)
+    emit(phase="serving", seconds=time.perf_counter() - t_phase,
+         variants=variants)
+    return {"launches": launches, **kernels}
+
+
+def retired_bytes(core) -> list:
+    """For every pool: retire it (the stream has drained) and report
+    whether torch.cuda.memory_allocated() fell by at least its arena's
+    bytes."""
+    out = []
+    for pool in core.pools.values():
+        if pool.retired:
+            continue
+        arena = sum(t.numel() * t.element_size()
+                    for t in vars(pool.exec.trees).values())
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        if not pool.retire():
+            raise AssertionError("an idle pool refused to retire")
+        out.append(before - torch.cuda.memory_allocated() >= arena)
+    return out
+
+
+def traced_phases(stream, want):
+    """The stream again with tracing on (phases fenced with
+    torch.cuda.synchronize): every result must be unchanged, and the
+    spans give ms per tick by phase."""
+    from repro_torch.obs import Tracer
+
+    tr = Tracer(capacity=1 << 20)
+    cl = serving_client("cuda", trace=tr, metrics=True)
+    t0 = time.perf_counter()
+    got = drive_stream(cl, stream)
+    wall = time.perf_counter() - t0
+    ticks = cl.core.ticks
+    metrics = cl.metrics()
+    cl.close()
+    results_identical(got, want, "traced cuda vs the numpy oracle")
+    ms = {}
+    for e in tr.export()["traceEvents"]:
+        if e.get("ph") == "X":
+            ms[e["name"]] = ms.get(e["name"], 0.0) + e["dur"] / 1e3
+    emit(phase="serving_traced", identical=True, wall_s=wall, ticks=ticks,
+         ms_per_tick={k: v / ticks for k, v in sorted(ms.items())},
+         metrics_lines=len(metrics.splitlines()))
+
+
+def variant_stream(variant: str) -> dict:
+    """A short stream (6 requests, budgets 8-24) through the relaxed or
+    wavefront executor on the card and on the CPU: identical results."""
+    stream = [dict(r, budget=8 + 4 * (r["uid"] % 5), moves=min(r["moves"], 2))
+              for r in serving_stream(1)[:6]]
+    out = {}
+    for dev in (DEV, "cpu"):
+        cl = serving_client(variant, device=dev)
+        t0 = time.perf_counter()
+        out[dev] = submit_all(cl, stream)
+        out[dev + "_s"] = time.perf_counter() - t0
+        cl.close()
+    n = results_identical(out[DEV], out["cpu"], f"{variant}: card vs CPU")
+    return {"requests": n, "identical": True, "card_s": out[DEV + "_s"],
+            "cpu_s": out["cpu_s"]}
+
+
+def submit_all(cl, stream) -> dict:
+    from repro_torch.service import SearchRequest
+
+    cfgs = serving_classes()
+    hs = [cl.submit(SearchRequest(uid=r["uid"], seed=r["seed"],
+                                  budget=r["budget"], moves=r["moves"],
+                                  keep_tree=True, cfg=cfgs[r["cls"]]))
+          for r in stream]
+    return {h.uid: h.result() for h in hs}
+
+
+def serving_kernel_times(mc) -> dict:
+    """Device ms (profiler) of one uct_select and one uct_backup launch
+    on G=16 slots and on a session's largest width (8 slots), each slot a
+    copy of the main path's final Pong tree, p=16, all slots active."""
+    from repro_torch.core import intree
+    from repro_torch.core.tree import from_numpy
+    from repro_torch.kernels import uct_backup, uct_select
+
+    cfg, p = mc.cfg, mc.p
+    snap = mc.exec.snapshot(mc.tree)
+    out = {}
+    n_sel, n_bak = uct_select.launches, uct_backup.launches
+    for G in (SERVE_G, SERVE_G // 2):
+        arrays = {k: np.stack([v] * G) for k, v in snap.items()}
+        ta = from_numpy(arrays, DEV)
+        act = torch.ones(G, dtype=torch.int32, device=DEV)
+        reset_sel = restorer(ta, ("edge_VL", "node_O"))
+        sel_ms = device_ms(lambda: uct_select.select_arena(cfg, ta, act, p),
+                           reset_sel, 30, "uct_select_kernel")
+        reset_sel()
+        sel = uct_select.select_arena(cfg, ta, act, p)
+        new = intree.insert_arena(cfg, ta, act, sel)
+        sim = torch.where(sel.expand_action >= 0, new[:, :, 0],
+                          sel.leaves).to(torch.int32)
+        vals = torch.tensor(np.random.RandomState(G).randint(
+            -65536, 65537, (G, p)), dtype=torch.int32, device=DEV)
+        reset_bak = restorer(ta, ("edge_N", "edge_W", "edge_VL", "node_N",
+                                  "node_O"))
+        bak_ms = device_ms(lambda: uct_backup.backup_arena(
+            cfg, ta, act, sel, sim, vals), reset_bak, 30, "uct_backup_kernel")
+        out[f"G{G}"] = {"uct_select_device_ms": sel_ms,
+                        "uct_backup_device_ms": bak_ms}
+        del ta
+    uct_select.launches, uct_backup.launches = n_sel, n_bak
+    emit(phase="serving_kernels", shape=f"X={cfg.X} Fp={cfg.Fp} D={cfg.D} "
+         f"p={p}, every slot the main path's final tree", **out)
+    return out
+
+
+def insert_arena_nonzero(cfg, arena, act, sel):
+    """Node Insertion in the port's earlier form: the valid lanes found
+    with nonzero() (a host sync), then indexed writes.  Timed beside the
+    sync-free insert_arena, which must give the same tree."""
+    dev = arena.child.device
+    G, p = sel.leaves.shape
+    Fp = arena.child.shape[2]
+    lane = torch.arange(Fp, dtype=torch.int32, device=dev)[None, None, :]
+    ea = sel.expand_action[:, :, None]
+    single, allmode = ea >= 0, ea == -2
+    act_lane = torch.where(single, ea, lane)
+    valid = (((single & (lane == 0)) | (allmode & (lane < sel.n_insert[:, :, None])))
+             & act[:, None, None])
+    nid = sel.insert_base[:, :, None] + torch.where(single, 0, lane)
+    vg, vw, vlane = valid.nonzero(as_tuple=True)
+    vl = sel.leaves[vg, vw].long()
+    va, vn = act_lane[vg, vw, vlane].long(), nid[vg, vw, vlane]
+    arena.child[vg, vl, va] = vn
+    vn = vn.long()
+    arena.node_depth[vg, vn] = arena.node_depth[vg, vl] + 1
+    arena.num_actions[vg, vn] = cfg.F
+    arena.num_expanded.index_put_(
+        (vg, vl), torch.ones_like(vn, dtype=torch.int32), accumulate=True)
+    arena.size += (sel.n_insert.sum(1, dtype=torch.int32)
+                   * act.to(torch.int32)).to(torch.int32)
+    return torch.where(valid, nid, -1).to(torch.int32)
+
+
+def insert_finalize_times(mc):
+    """Node Insertion (sync-free, and the earlier nonzero() form) and
+    finalize at the main path's shape (Pong, G=1, p=16) on its final
+    tree: host wall per call and device ms per call (profiler, all
+    kernels); insert_dev must run under CUDA's sync debug mode "error"."""
+    from repro_torch.core import intree, reroot
+    from repro_torch.core.executor import CudaExecutor
+    from repro_torch.core.tree import NULL, as_arena, from_numpy, to_numpy
+
+    cfg, p = mc.cfg, mc.p
+    snap = mc.exec.snapshot(mc.tree)
+    root = int(snap["root"])
+    # the tree a move commit with subtree reuse leaves: the full tree
+    # re-rooted at its most visited child, with room to insert
+    arrays, _ = reroot.reroot(cfg, snap, int(snap["child"][root, int(
+        np.argmax(snap["edge_N"][root]))]))
+    ex = CudaExecutor(cfg, 1, device=DEV, _trees=as_arena(from_numpy(arrays, DEV)))
+    active = np.ones(1, bool)
+    sel = ex.selection(active, p)
+    act = torch.ones(1, dtype=torch.bool, device=DEV)
+    base = to_numpy(ex.trees)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        dev_block = ex.insert_dev(active, sel)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    new = ex.insert_host(dev_block)
+    a, b = from_numpy(base, DEV), from_numpy(base, DEV)
+    intree.insert_arena(cfg, a, act, sel)
+    insert_arena_nonzero(cfg, b, act, sel)
+    same = all(torch.equal(getattr(a, k), getattr(b, k))
+               for k in ("child", "node_depth", "num_actions", "num_expanded",
+                         "size"))
+    if not same:
+        raise AssertionError("sync-free insert_arena differs from the "
+                             "nonzero() form")
+    # repeated insertion of one selection does the same work every call
+    new_t = wall_and_device_ms(lambda: intree.insert_arena(cfg, a, act, sel), 50)
+    old_t = wall_and_device_ms(lambda: insert_arena_nonzero(cfg, b, act, sel), 50)
+    ins = new[new != NULL]
+    nodes = np.full((1, p), NULL, np.int32)
+    nodes[0, :len(ins)] = ins[:p]
+    na = np.where(nodes != NULL, cfg.F, 0).astype(np.int32)
+    term = np.zeros_like(nodes)
+    fin_t = wall_and_device_ms(lambda: intree.finalize_arena(a, nodes, na, term), 50)
+    emit(phase="insert_finalize", shape=f"G=1 X={cfg.X} Fp={cfg.Fp} p={p}",
+         tree_size=int(arrays["size"]), inserted=int(len(ins)), insert_dev_sync_free=True, identical=True,
+         insert_sync_free=new_t, insert_nonzero=old_t, finalize=fin_t)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1087,6 +1474,12 @@ def main() -> int:
     lm_launches = phase_mcts_lm()
     kernels.append(dict(flash, launches=lm_launches["flash_attention"],
                         launches_serve=serve_launches))
+    serving = phase_serving(mc)
+    for row in kernels[:2]:
+        row["launches_serving"] = serving["launches"][row["name"]]
+        row["serving_device_ms"] = {
+            f"G{G}": serving[f"G{G}"][row["name"] + "_device_ms"]
+            for G in (SERVE_G, SERVE_G // 2)}
     emit(phase="total", seconds=round(time.perf_counter() - t_start, 3))
     print(gpu, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

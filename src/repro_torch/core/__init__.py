@@ -1,7 +1,7 @@
 from repro_torch.core.tree import TreeConfig, UCTree, init_tree, NULL
 from repro_torch.core.executor import (
-    CudaExecutor, InTreeExecutor, ReferenceExecutor, TorchExecutor,
-    make_intree_executor,
+    EXECUTOR_NAMES, CompactionSession, CudaExecutor, InTreeExecutor,
+    ReferenceExecutor, TorchExecutor, make_intree_executor,
 )
 from repro_torch.core.expand import (
     EXPANSION_MODES, ExpansionEngine, HostExpansion, host_expand_phase,
@@ -16,7 +16,7 @@ __all__ = [
     "TreeConfig", "UCTree", "init_tree", "NULL", "TreeParallelMCTS",
     "RolloutBackend", "StepStats", "InTreeExecutor", "TorchExecutor",
     "CudaExecutor", "ReferenceExecutor", "make_executor",
-    "make_intree_executor",
+    "make_intree_executor", "EXECUTOR_NAMES", "CompactionSession",
     "EXPANSION_MODES", "ExpansionEngine", "HostExpansion",
     "host_expand_phase",
     "StateTable", "fixedpoint", "intree", "ref_sequential", "scoring",

@@ -1,16 +1,18 @@
 """In-tree executor stack: one protocol, every backend, any G.
 
-The port of repro.core.executor (main-path slice):
+The port of repro.core.executor:
 
   InTreeExecutor    — the protocol.  Every implementation drives G >= 1
                       tree slots through the device phases (Selection /
                       Insertion / finalize / BackUp) under a [G] active
                       mask; inactive slots come back bit-frozen.
-                      TreeParallelMCTS is the G=1 client.
+                      TreeParallelMCTS is the G=1 client, the service
+                      pools (repro_torch.service) the G > 1 client.
   ReferenceExecutor — the paper's CPU-only master process: one sequential
                       numpy MutableTree per slot.  Correctness oracle.
   TorchExecutor     — an arena of tensors on a device + the plain torch
-                      ops of core.intree ("faithful").
+                      ops of core.intree ("faithful", "relaxed",
+                      "wavefront" selection variants).
   CudaExecutor      — the port's counterpart of PallasExecutor: Selection
                       (with the expansion assignment) and BackUp (with
                       the straggler mask) are the hand-written CUDA
@@ -19,25 +21,38 @@ The port of repro.core.executor (main-path slice):
                       arena the kernel wrappers run their plain versions.
 
 Every device executor keeps its arena in place on its device and updates
-it in place.  The serving-stack pieces of the JAX module (compaction
-sessions, gather_sub/scatter_sub, fused run_supersteps, sharding) are
-later slices of the port (ROADMAP.md queue A).
+it in place.  Node Insertion is split as in the JAX package: insert_dev
+queues it and returns the device id block without reading anything
+back, insert_host is the one blocking read, and insert() is the two back
+to back.
+
+Slot compaction: ``gather_sub`` copies the active slots into a dense
+sub-executor of the same kind (padded to a power of two with copies of
+the first member, which run masked off) and ``scatter_sub`` writes the
+first A rows back.  ``open_session`` wraps the pair in a
+CompactionSession that keeps the sub-arena resident across supersteps:
+one gather when the active set forms, one scatter when it changes or a
+snapshot is read.  Per-slot arithmetic is position-independent, so
+compaction never changes what a slot computes.  The fused K-superstep
+dispatch and sharding of the JAX module are later slices of the port
+(ROADMAP.md queue A items 3 and 6).
 """
 
 from __future__ import annotations
 
-from typing import Protocol
+from typing import Optional, Protocol
 
 import numpy as np
 import torch
 
 from repro_torch.core import intree, ref_sequential as ref
 from repro_torch.core.tree import (
-    NULL, TreeConfig, UCTree, arena_set_slot, arena_slot, from_numpy,
+    FIELDS, NULL, TreeConfig, UCTree, arena_set_slot, arena_slot, from_numpy,
     init_arena, init_tree, init_tree_arrays, resolve_device, to_numpy,
 )
+from repro_torch.obs.trace import NULL_TRACER
 
-EXECUTOR_NAMES = ("reference", "faithful", "cuda")
+EXECUTOR_NAMES = ("reference", "faithful", "relaxed", "wavefront", "cuda")
 
 
 class InTreeExecutor(Protocol):
@@ -54,6 +69,8 @@ class InTreeExecutor(Protocol):
     def reset_slot(self, g: int, root_num_actions: int) -> None: ...
     def selection(self, active: np.ndarray, p: int): ...
     def insert(self, active: np.ndarray, sel) -> np.ndarray: ...
+    def insert_dev(self, active: np.ndarray, sel): ...
+    def insert_host(self, new_nodes) -> np.ndarray: ...
     def finalize(self, nodes, num_actions, terminal, prior_parent,
                  priors_fx) -> None: ...
     def backup(self, active, sel, sim_nodes, values_fx, alternating: bool,
@@ -65,6 +82,10 @@ class InTreeExecutor(Protocol):
     def write_slot(self, g: int, arrays: dict) -> None: ...
     def block(self) -> None: ...
     def release(self) -> None: ...
+    def gather_sub(self, slot_idx: np.ndarray, Gc: int) -> "InTreeExecutor": ...
+    def scatter_sub(self, sub: "InTreeExecutor", slot_idx: np.ndarray) -> None: ...
+    def open_session(self, slot_idx: np.ndarray, Gc: int,
+                     tracer=None, tid: int = 0) -> "CompactionSession": ...
     # single-tree surface of the G=1 client
     def init(self, root_num_actions: int): ...
     def get_tree(self, g: int = 0): ...
@@ -73,29 +94,124 @@ class InTreeExecutor(Protocol):
     def best_action(self, tree) -> int: ...
 
 
+class CompactionSession:
+    """Device-resident dense sub-arena spanning one fixed active set
+    (a copy of repro.core.executor.CompactionSession).
+
+    Built on any executor's gather_sub/scatter_sub.  Lifecycle:
+
+      open   — ONE gather_sub copies the active slots into `sub` (dense,
+               pow2-padded); the session then stays resident.
+      dirty  — `mark_superstep` records that `sub` holds updates the full
+               arena has not seen; `sync` scatters them back WITHOUT
+               closing (snapshot reads force this), after which `sub`
+               keeps accumulating.
+      close  — final sync + the session refuses further use.  The owning
+               pool closes on any membership change (admit / evict) or
+               content rewrite of a member slot (reroot / reset).
+
+    `matches` is the reuse test: same slot set, same padded width, still
+    open.  When tracing is live the gather and scatter are fenced with
+    the executor's block() (torch.cuda.synchronize on a card), so their
+    copy time stays inside their spans; untraced, nothing waits.
+    """
+
+    def __init__(self, parent: "InTreeExecutor", slot_idx: np.ndarray,
+                 Gc: int, tracer=None, tid: int = 0):
+        self.parent = parent
+        self.slot_idx = np.asarray(slot_idx, np.int32).copy()
+        self.Gc = int(Gc)
+        self.trace = NULL_TRACER if tracer is None else tracer
+        self.tid = tid
+        with self.trace.span("compact-gather", cat="compact", tid=tid,
+                             slots=len(self.slot_idx), Gc=self.Gc):
+            self.sub = parent.gather_sub(self.slot_idx, self.Gc)
+            if self.trace.enabled:
+                self.sub.block()
+        self.dirty = False
+        self.open = True
+        self.supersteps = 0
+
+    @property
+    def A(self) -> int:
+        return len(self.slot_idx)
+
+    def matches(self, slot_idx: np.ndarray, Gc: int) -> bool:
+        return (self.open and self.Gc == int(Gc)
+                and len(slot_idx) == self.A
+                and bool(np.array_equal(self.slot_idx, slot_idx)))
+
+    def owns(self, g: int) -> bool:
+        return self.open and bool(np.any(self.slot_idx == g))
+
+    def mark_superstep(self):
+        assert self.open, "superstep on a closed CompactionSession"
+        self.dirty = True
+        self.supersteps += 1
+
+    def sync(self) -> bool:
+        """Scatter pending sub-arena updates back; True if one happened."""
+        if self.dirty:
+            with self.trace.span("compact-scatter", cat="compact",
+                                 tid=self.tid, slots=len(self.slot_idx)):
+                self.parent.scatter_sub(self.sub, self.slot_idx)
+                if self.trace.enabled:
+                    self.parent.block()
+            self.dirty = False
+            return True
+        return False
+
+    def close(self) -> bool:
+        """Final sync; the session is unusable afterwards.  True if the
+        close actually scattered."""
+        scattered = self.sync() if self.open else False
+        self.open = False
+        return scattered
+
+
+def _padded(slot_idx: np.ndarray, Gc: int) -> np.ndarray:
+    """The A member slots, then Gc - A filler copies of the first member
+    (run masked off)."""
+    idx = np.asarray(slot_idx, np.int64)
+    return np.concatenate([idx, np.full(Gc - len(idx), idx[0], np.int64)])
+
+
 class TorchExecutor:
     """G stacked trees on `device` + the plain torch in-tree ops."""
 
     def __init__(self, cfg: TreeConfig, G: int, variant: str = "faithful",
-                 device=None):
-        if variant != "faithful":
+                 device=None, _trees: Optional[UCTree] = None):
+        if variant not in intree.SELECT_VARIANTS:
             raise NotImplementedError(
-                f"TorchExecutor variant {variant!r} is not ported yet "
-                "(ROADMAP.md queue A); the port has 'faithful'")
+                f"TorchExecutor variant {variant!r}: the plain torch paths "
+                f"are {intree.SELECT_VARIANTS} (the hand-written kernels "
+                "are CudaExecutor / executor='cuda')")
         self.cfg, self.G, self.variant = cfg, G, variant
         self.device = resolve_device(device)
-        self.trees = init_arena(cfg, G, device=self.device)
+        self.trees = (init_arena(cfg, G, device=self.device) if _trees is None
+                      else _trees)
 
     def _mask(self, active) -> torch.Tensor:
         return intree.as_mask(active, self.device)
 
     # -- device phases -------------------------------------------------
     def selection(self, active, p: int):
-        return intree.select_arena(self.cfg, self.trees, self._mask(active), p)
+        return intree.select_arena(self.cfg, self.trees, self._mask(active),
+                                   p, self.variant)
 
     def insert(self, active, sel) -> np.ndarray:
-        new = intree.insert_arena(self.cfg, self.trees, self._mask(active), sel)
-        return new.cpu().numpy()
+        return self.insert_host(self.insert_dev(active, sel))
+
+    def insert_dev(self, active, sel) -> torch.Tensor:
+        """Queue Node Insertion and return the DEVICE [G, p, Fp] id block
+        without reading anything back."""
+        return intree.insert_arena(self.cfg, self.trees, self._mask(active),
+                                   sel)
+
+    def insert_host(self, new_nodes) -> np.ndarray:
+        """The blocking half of insert(): the id block on the host.
+        insert() == insert_host(insert_dev(...)) bit for bit."""
+        return new_nodes.cpu().numpy()
 
     def finalize(self, nodes, num_actions, terminal, prior_parent, priors_fx):
         intree.finalize_arena(self.trees, nodes, num_actions, terminal,
@@ -131,7 +247,34 @@ class TorchExecutor:
             torch.cuda.synchronize(self.device)
 
     def release(self):
+        """Drop the arena's tensors (cold-pool retirement); the executor is
+        unusable afterwards."""
         self.trees = None
+
+    # -- compaction (gather active slots into a dense sub-arena) -------
+    def _spawn(self, trees: UCTree, Gc: int) -> "TorchExecutor":
+        return TorchExecutor(self.cfg, Gc, self.variant, device=self.device,
+                             _trees=trees)
+
+    def gather_sub(self, slot_idx: np.ndarray, Gc: int) -> "TorchExecutor":
+        """A sub-executor of the same kind over contiguous copies of the
+        member slots (the kernels' check_arena requires contiguous
+        arrays), padded to Gc with copies of the first member."""
+        gidx = torch.as_tensor(_padded(slot_idx, Gc), device=self.device)
+        return self._spawn(self.trees.map(lambda a: a.index_select(0, gidx)),
+                           Gc)
+
+    def scatter_sub(self, sub: "TorchExecutor", slot_idx: np.ndarray):
+        """Write the first A rows of `sub` back into their slots."""
+        idx = torch.as_tensor(np.asarray(slot_idx, np.int64),
+                              device=self.device)
+        A = len(slot_idx)
+        for k in FIELDS:
+            getattr(self.trees, k).index_copy_(0, idx, getattr(sub.trees, k)[:A])
+
+    def open_session(self, slot_idx: np.ndarray, Gc: int,
+                     tracer=None, tid: int = 0) -> CompactionSession:
+        return CompactionSession(self, slot_idx, Gc, tracer=tracer, tid=tid)
 
     # -- single-tree surface (G=1 driver / tests) -----------------------
     def init(self, root_num_actions: int) -> UCTree:
@@ -156,8 +299,9 @@ class CudaExecutor(TorchExecutor):
     superstep for all slots; Insertion and finalize as torch ops on the
     same device.  Straggler-masked backups run in the kernel too."""
 
-    def __init__(self, cfg: TreeConfig, G: int, device=None):
-        super().__init__(cfg, G, "faithful", device=device)
+    def __init__(self, cfg: TreeConfig, G: int, device=None,
+                 _trees: Optional[UCTree] = None):
+        super().__init__(cfg, G, "faithful", device=device, _trees=_trees)
         from repro_torch.kernels import ops as kops
         self._kops = kops
         self.variant = "cuda"
@@ -173,6 +317,10 @@ class CudaExecutor(TorchExecutor):
             sim_nodes, values_fx, alternating,
             None if dropped is None else np.asarray(dropped, np.int32))
 
+    def _spawn(self, trees: UCTree, Gc: int) -> "CudaExecutor":
+        # a session's sub-arena runs the kernels too
+        return CudaExecutor(self.cfg, Gc, device=self.device, _trees=trees)
+
 
 class ReferenceExecutor:
     """The paper's CPU-only master process: one sequential numpy
@@ -180,9 +328,10 @@ class ReferenceExecutor:
     [G, ...] host-array convention as the device executors; inactive
     slots produce the dead rows the driver never reads."""
 
-    def __init__(self, cfg: TreeConfig, G: int):
+    def __init__(self, cfg: TreeConfig, G: int, _trees: Optional[list] = None):
         self.cfg, self.G = cfg, G
-        self.trees = [self.init(cfg.F) for _ in range(G)]
+        self.trees = ([self.init(cfg.F) for _ in range(G)] if _trees is None
+                      else _trees)
 
     # -- phases --------------------------------------------------------
     def selection(self, active, p: int) -> dict:
@@ -215,6 +364,13 @@ class ReferenceExecutor:
         for g in np.flatnonzero(active):
             slot_sel = {k: v[g] for k, v in sel.items()}
             new_nodes[g] = ref.insert_phase(self.cfg, self.trees[g], slot_sel)
+        return new_nodes
+
+    # numpy has no device: "dev" computes and "host" is the identity
+    def insert_dev(self, active, sel: dict) -> np.ndarray:
+        return self.insert(active, sel)
+
+    def insert_host(self, new_nodes: np.ndarray) -> np.ndarray:
         return new_nodes
 
     def finalize(self, nodes, num_actions, terminal, prior_parent, priors_fx):
@@ -258,6 +414,21 @@ class ReferenceExecutor:
     def release(self):
         self.trees = None
 
+    # -- compaction ----------------------------------------------------
+    # MutableTrees mutate in place, so the sub-executor shares the slot
+    # objects and scatter is a re-link.
+    def gather_sub(self, slot_idx: np.ndarray, Gc: int) -> "ReferenceExecutor":
+        return ReferenceExecutor(
+            self.cfg, Gc, _trees=[self.trees[g] for g in _padded(slot_idx, Gc)])
+
+    def scatter_sub(self, sub: "ReferenceExecutor", slot_idx: np.ndarray):
+        for i, g in enumerate(np.asarray(slot_idx)):
+            self.trees[g] = sub.trees[i]
+
+    def open_session(self, slot_idx: np.ndarray, Gc: int,
+                     tracer=None, tid: int = 0) -> CompactionSession:
+        return CompactionSession(self, slot_idx, Gc, tracer=tracer, tid=tid)
+
     # -- single-tree surface -------------------------------------------
     def init(self, root_num_actions: int) -> ref.MutableTree:
         return ref.MutableTree.from_arrays(
@@ -281,15 +452,16 @@ class ReferenceExecutor:
 
 def make_intree_executor(cfg: TreeConfig, G: int, name: str,
                          device=None) -> InTreeExecutor:
-    """Executor factory: ``reference`` (numpy oracle on the host),
-    ``faithful`` (plain torch ops) or ``cuda`` (the hand-written kernels)
-    on `device` (CUDA unless the caller passes another)."""
+    """Executor factory shared by TreeParallelMCTS (G=1) and the service
+    pools: ``reference`` (numpy oracle on the host), ``faithful`` /
+    ``relaxed`` / ``wavefront`` (plain torch ops) or ``cuda`` (the
+    hand-written kernels) on `device` (CUDA unless the caller passes
+    another)."""
     if name == "reference":
         return ReferenceExecutor(cfg, G)
-    if name == "faithful":
-        return TorchExecutor(cfg, G, "faithful", device=device)
     if name == "cuda":
         return CudaExecutor(cfg, G, device=device)
+    if name in intree.SELECT_VARIANTS:
+        return TorchExecutor(cfg, G, name, device=device)
     raise NotImplementedError(
-        f"executor {name!r} is not ported yet; the port has "
-        f"{EXECUTOR_NAMES} (the rest are queued in ROADMAP.md queue A)")
+        f"executor {name!r}: the port has {EXECUTOR_NAMES}")

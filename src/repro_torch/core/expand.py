@@ -14,14 +14,19 @@ The CPU half of Expansion — ST reads, 1-step env transitions, ST writes:
                    scalar-env workers (envs.vector.PoolVectorEnv) — the
                    paper's multi-worker CPU side, for envs without a
                    vectorized form.
+  mode="auto"    — "vector" when the env supports it, else "loop".
 
 All modes are bit-identical: the flattening preserves the loop's
 (slot, worker, action) visit order, and step_batch implementations match
 scalar ``step`` element for element.
 
-TreeParallelMCTS feeds it one slot.  This module is the port's copy of
-repro.core.expand (pure numpy; the serving pools that feed it many slots,
-and their asynchronous pool stepping and tracing, are a later slice).
+TreeParallelMCTS feeds it one slot, service.pool.ArenaPool every active
+slot of a superstep (and a SchedulerCore shares ONE engine across all its
+pools); each call records an "expand" span and the expansion metrics.
+This module is the port's copy of repro.core.expand (pure numpy; the
+asynchronous expand_submit/expand_collect split of the overlap serving
+mode and PoolVectorEnv's fused step_and_count_batch wait for ROADMAP.md
+queue A item 6).
 """
 
 from __future__ import annotations
@@ -35,8 +40,10 @@ from repro_torch.core import fixedpoint as fx
 from repro_torch.core.state_table import StateTable
 from repro_torch.core.tree import NULL
 from repro_torch.envs.vector import PoolVectorEnv, has_vector_env
+from repro_torch.obs.metrics import NULL_REGISTRY
+from repro_torch.obs.trace import NULL_TRACER
 
-EXPANSION_MODES = ("loop", "vector", "pool")
+EXPANSION_MODES = ("loop", "vector", "pool", "auto")
 
 
 @dataclasses.dataclass
@@ -139,10 +146,13 @@ class ExpansionEngine:
     and [p, Fp] inserted-id block — and returns ``{g: HostExpansion}``.
     """
 
-    def __init__(self, env, mode: str = "loop", pool_workers: int = 2):
+    def __init__(self, env, mode: str = "loop", pool_workers: int = 2,
+                 tracer=None, metrics=None):
         if mode not in EXPANSION_MODES:
             raise ValueError(f"expansion mode {mode!r}: one of "
                              f"{EXPANSION_MODES}")
+        if mode == "auto":
+            mode = "vector" if has_vector_env(env) else "loop"
         if mode == "vector" and not has_vector_env(env):
             raise ValueError(
                 f"expansion='vector' needs step_batch/num_actions_batch on "
@@ -151,12 +161,33 @@ class ExpansionEngine:
         self.env, self.mode = env, mode
         self._venv = (PoolVectorEnv(env, pool_workers) if mode == "pool"
                       else env)
+        self.trace = NULL_TRACER if tracer is None else tracer
+        reg = NULL_REGISTRY if metrics is None else metrics
+        self._m_calls = reg.counter(
+            "service_expand_batch_calls_total",
+            "env batch round-trips issued by the expansion engine",
+            mode=mode)
+        self._m_rows = reg.counter(
+            "service_expand_rows_total",
+            "nodes expanded (env transitions) by the expansion engine",
+            mode=mode)
 
-    def expand(self, slots) -> dict:
-        if self.mode == "loop":
-            return {g: host_expand_phase(self.env, st, sel, nn)
-                    for g, st, sel, nn in slots}
-        return self._expand_batched(list(slots))
+    def expand(self, slots, tid: int = 0) -> dict:
+        with self.trace.span("expand", cat="phase", tid=tid,
+                             slots=len(slots) if hasattr(slots, "__len__")
+                             else -1, mode=self.mode):
+            if self.mode == "loop":
+                out = {g: host_expand_phase(self.env, st, sel, nn)
+                       for g, st, sel, nn in slots}
+                rows = sum(len(hx.fin_nodes) for hx in out.values())
+                # loop mode: one scalar env.step per row
+                self._m_calls.inc(rows)
+            else:
+                out = self._expand_batched(list(slots))
+                rows = sum(len(hx.fin_nodes) for hx in out.values())
+                self._m_calls.inc(1 if rows else 0)
+            self._m_rows.inc(rows)
+            return out
 
     # -- one flattened batch over all slots' pending expansions ---------
     def _expand_batched(self, slots) -> dict:

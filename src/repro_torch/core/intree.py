@@ -1,12 +1,23 @@
 """Batched in-tree operations (the accelerator, paper §IV) in plain torch.
 
-The port of repro.core.intree, faithful variant.  Three entry points
-mirror the paper accelerator's three functions:
+The port of repro.core.intree.  Three entry points mirror the paper
+accelerator's three functions:
 
-  select_arena   — Selection + virtual-loss apply for p workers, strictly
-                   in worker order (worker k sees the virtual loss of
-                   workers < k), then the BSP expansion-assignment pass;
-  insert_arena   — Node Insertion (paper §IV-E);
+  select_arena   — Selection + virtual-loss apply for p workers, then the
+                   BSP expansion-assignment pass.  Variants (the
+                   ``variant`` argument, as in the JAX package):
+                     faithful  — strictly in worker order (worker k sees
+                                 the virtual loss of workers < k);
+                     relaxed   — every worker reads the pre-superstep
+                                 statistics and the virtual loss is applied
+                                 once after all have chosen (beyond-paper);
+                     wavefront — level-synchronous: workers that meet at a
+                                 node are spread over its best edges by
+                                 their stable within-group rank, virtual
+                                 loss applied once at the end (beyond-paper);
+  insert_arena   — Node Insertion (paper §IV-E), with no host sync: the
+                   [G, p, Fp] id block is computed on the device and the
+                   tree is written by scatter-adds over the whole block;
   backup_arena   — BackUp from the memoized paths (one masked scatter-add
                    pass: integer adds commute, so it equals the
                    sequential program bit for bit).
@@ -20,7 +31,10 @@ The single-tree forms (select_batch, ...) run the arena ops on a G=1 view
 of the tree.
 
 JAX's ``.at[].add/set(mode="drop")`` silently drops out-of-range indices;
-torch does not, so every scatter below first masks its index set.
+torch does not, so every scatter below first masks its index set.  The
+scatters of the relaxed/wavefront selection and of Node Insertion give
+every lane an in-range index and add zero on the masked-off lanes: no
+boolean indexing, so nothing reads the device on the host.
 
 These ops are also the plain versions of the CUDA kernels
 (kernels/uct_select.py, kernels/uct_backup.py): the kernels are held
@@ -35,6 +49,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.core import fixedpoint as fx
 from repro_torch.core import scoring
 from repro_torch.core.tree import NULL, TreeConfig, UCTree, as_arena
 
@@ -70,11 +85,16 @@ class SelectionResult:
         return out
 
 
+SELECT_VARIANTS = ("faithful", "relaxed", "wavefront")
+
+
 def as_mask(active, device) -> torch.Tensor:
-    """[G] bool mask on `device` from a numpy / list / tensor mask."""
+    """[G] bool mask on `device` from a numpy / list / tensor mask.  A
+    host mask's upload does not wait for the device's queue."""
     if isinstance(active, torch.Tensor):
         return (active != 0).to(device)
-    return torch.as_tensor(np.asarray(active) != 0, device=device)
+    host = torch.from_numpy(np.ascontiguousarray(np.asarray(active) != 0))
+    return host.to(device, non_blocking=True)
 
 
 def _slots(arena: UCTree) -> torch.Tensor:
@@ -90,12 +110,13 @@ def select_arena(cfg: TreeConfig, arena: UCTree, active, p: int,
     """Selection for p workers on every active slot; updates
     ``arena.edge_VL`` and ``arena.node_O`` in place.  Returns the [G, ...]
     SelectionResult (assignment pass included)."""
-    if variant != "faithful":
-        raise NotImplementedError(
-            f"selection variant {variant!r} is not ported yet (ROADMAP.md "
-            "queue A); the port has the faithful variant")
+    if variant not in SELECT_VARIANTS:
+        raise ValueError(f"selection variant {variant!r}: one of "
+                         f"{SELECT_VARIANTS}")
     dev = arena.child.device
     act = as_mask(active, dev)
+    if variant != "faithful":
+        return _select_levelwise(cfg, arena, act, p, variant == "wavefront")
     G, D = arena.child.shape[0], cfg.D
     gi = _slots(arena)
     pn = torch.full((G, p, D), NULL, dtype=i32, device=dev)
@@ -141,6 +162,73 @@ def select_arena(cfg: TreeConfig, arena: UCTree, active, p: int,
     return _assign_expansions(cfg, arena, act, pn, pa, depths, leaves, p)
 
 
+def _segment_rank(keys: torch.Tensor) -> torch.Tensor:
+    """r[g, j] = #{i < j : keys[g, i] == keys[g, j]}: the stable
+    within-group rank (a stable sort, then the run-start scan)."""
+    G, p = keys.shape
+    sk, sidx = torch.sort(keys, dim=-1, stable=True)
+    pos = torch.arange(p, device=keys.device).expand(G, p)
+    new_run = torch.ones_like(sk, dtype=torch.bool)
+    new_run[:, 1:] = sk[:, 1:] != sk[:, :-1]
+    run_start = torch.cummax(torch.where(new_run, pos, 0), dim=-1).values
+    return torch.zeros_like(sidx).scatter_(-1, sidx, pos - run_start)
+
+
+def _select_levelwise(cfg, arena, act, p: int, wavefront: bool):
+    """The relaxed and wavefront selections: all p workers of every slot
+    descend one level per step reading the pre-superstep statistics;
+    virtual loss and in-flight counts are applied once at the end.
+    Relaxed takes each node's best edge (so its workers share one path);
+    wavefront gives the k-th worker to reach a node that node's k-th best
+    edge (mod its valid edges)."""
+    dev = arena.child.device
+    G, X, Fp = arena.child.shape
+    D = cfg.D
+    gi = _slots(arena)[:, None]                                       # [G,1]
+    w = torch.arange(p, device=dev)
+    node = arena.root.long()[:, None].expand(G, p).contiguous()       # [G,p]
+    depth = torch.zeros((G, p), dtype=i32, device=dev)
+    pn = torch.full((G, p, D), NULL, dtype=i32, device=dev)
+    pa = torch.full((G, p, D), NULL, dtype=i32, device=dev)
+    for d in range(D):
+        leaf = scoring.is_leaf(
+            cfg, num_expanded=arena.num_expanded[gi, node],
+            num_actions=arena.num_actions[gi, node],
+            terminal=arena.terminal[gi, node], depth=depth)
+        live = act[:, None] & ~leaf & (depth == d)
+        s = scoring.edge_scores_fx(
+            cfg,
+            child=arena.child[gi, node], edge_N=arena.edge_N[gi, node],
+            edge_W=arena.edge_W[gi, node], edge_VL=arena.edge_VL[gi, node],
+            edge_P=arena.edge_P[gi, node],
+            node_N=arena.node_N[gi, node][..., None],
+            node_O=arena.node_O[gi, node][..., None],
+            num_actions=arena.num_actions[gi, node][..., None],
+            log_table=arena.log_table)                             # [G,p,Fp]
+        if wavefront:
+            order = torch.argsort(-s, dim=-1, stable=True)   # best first
+            n_valid = torch.clamp((s > int(fx.FX_NEG_INF)).sum(-1), min=1)
+            rank = _segment_rank(torch.where(live, node, X + w))
+            a = order.gather(-1, (rank % n_valid)[..., None])[..., 0]
+        else:
+            a = scoring.argmax_first(s).long()
+        pn[:, :, d] = torch.where(live, node.to(i32), pn[:, :, d])
+        pa[:, :, d] = torch.where(live, a.to(i32), pa[:, :, d])
+        node = torch.where(live, arena.child[gi, node, a].long(), node)
+        depth = depth + live.to(i32)
+    on = pn != NULL
+    nidx = gi[..., None] * X + pn.clamp(min=0).long()                 # [G,p,D]
+    arena.edge_VL.view(-1).index_add_(
+        0, (nidx * Fp + pa.clamp(min=0).long()).reshape(-1),
+        on.to(i32).reshape(-1))
+    nO = arena.node_O.view(-1)
+    nO.index_add_(0, nidx.reshape(-1), on.to(i32).reshape(-1))
+    nO.index_add_(0, (gi * X + node).reshape(-1),
+                  act[:, None].expand(G, p).to(i32).reshape(-1))
+    return _assign_expansions(cfg, arena, act, pn, pa, depth,
+                              node.to(i32), p)
+
+
 def _assign_expansions(cfg, arena, act, pn, pa, depths, leaves, p):
     """BSP expansion-assignment post-pass, in worker order."""
     dev = arena.child.device
@@ -181,34 +269,48 @@ def _assign_expansions(cfg, arena, act, pn, pa, depths, leaves, p):
 
 def insert_arena(cfg: TreeConfig, arena: UCTree, active,
                  sel: SelectionResult) -> torch.Tensor:
-    """Node Insertion for every worker of every active slot (one masked
-    scatter), in place.  Returns new_nodes [G, p, Fp] (NULL-padded).
-    Target edges are distinct by the assignment pass (the paper's
-    'all workers expand different nodes' invariant)."""
+    """Node Insertion for every worker of every active slot, in place,
+    without a host sync.  Returns new_nodes [G, p, Fp] (NULL-padded) on
+    the arena's device.
+
+    Target edges and new node ids are distinct by the assignment pass
+    (the paper's 'all workers expand different nodes' invariant), so each
+    written word takes one valid lane's value: the writes are integer
+    scatter-adds of ``valid * (new - prior)`` over the whole block, with
+    every masked-off lane sent to an in-range index carrying 0.  Integer
+    adds commute, so the result is exact and order-free; the JAX
+    ``mode="drop"`` set has no torch twin, and a non-accumulating
+    scatter with duplicate indices is undefined on CUDA."""
     dev = arena.child.device
     act = as_mask(active, dev)
     G, p = sel.leaves.shape
-    Fp = arena.child.shape[2]
-    lane = torch.arange(Fp, dtype=i32, device=dev)[None, None, :]
+    X, Fp = arena.child.shape[1], arena.child.shape[2]
+    lane = torch.arange(Fp, dtype=i32, device=dev)
     ea = sel.expand_action[:, :, None]
-    single = ea >= 0
-    allmode = ea == -2
-    act_lane = torch.where(single, ea, lane)                          # [G,p,Fp]
-    valid = (((single & (lane == 0)) | (allmode & (lane < sel.n_insert[:, :, None])))
-             & act[:, None, None])
-    nid = sel.insert_base[:, :, None] + torch.where(single, 0, lane)
-
-    vg, vw, vlane = valid.nonzero(as_tuple=True)    # one host sync
-    vl = sel.leaves[vg, vw].long()
-    va, vn = act_lane[vg, vw, vlane].long(), nid[vg, vw, vlane]
-    arena.child[vg, vl, va] = vn
-    vn = vn.long()
-    arena.node_depth[vg, vn] = arena.node_depth[vg, vl] + 1
-    arena.num_actions[vg, vn] = cfg.F
-    arena.num_expanded.index_put_(
-        (vg, vl), torch.ones_like(vn, dtype=i32), accumulate=True)
-    arena.size += (sel.n_insert.sum(1, dtype=i32) * act.to(i32)).to(i32)
-    return torch.where(valid, nid, NULL).to(i32)
+    # a worker inserts n_insert nodes (1 at its expand_action edge, or k
+    # for an expand-all claim, one per lane) with ids from insert_base on
+    valid = (lane < sel.n_insert[:, :, None]) & act[:, None, None]     # [G,p,Fp]
+    nid = sel.insert_base[:, :, None] + lane
+    # flat indices; a masked-off lane's leaf and edge are in range already
+    # (dead rows hold leaf = root), its id is clamped into range
+    base = _slots(arena)[:, None, None] * X
+    leaf = (base + sel.leaves[:, :, None]).expand(G, p, Fp)
+    edge = (leaf * Fp + torch.where(ea >= 0, ea, lane)).reshape(-1)
+    new = (base + nid.clamp(max=X - 1)).reshape(-1)
+    leaf = leaf.reshape(-1)
+    v = valid.reshape(-1).to(i32)
+    child, depth = arena.child.view(-1), arena.node_depth.view(-1)
+    n_act, n_exp = arena.num_actions.view(-1), arena.num_expanded.view(-1)
+    # every delta reads the pre-insert tree before any write lands
+    d_child = v * (nid.reshape(-1) - child[edge])
+    d_depth = v * (depth[leaf] + 1 - depth[new])
+    d_act = v * (cfg.F - n_act[new])
+    child.index_add_(0, edge, d_child)
+    depth.index_add_(0, new, d_depth)
+    n_act.index_add_(0, new, d_act)
+    n_exp.index_add_(0, leaf, v)
+    arena.size += sel.n_insert.sum(1, dtype=i32) * act.to(i32)
+    return torch.where(valid, nid, NULL)
 
 
 def finalize_arena(arena: UCTree, nodes, num_actions, terminal,
@@ -323,8 +425,10 @@ def _lift(x):
     return (x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x)))[None]
 
 
-def select_batch(cfg: TreeConfig, tree: UCTree, p: int) -> SelectionResult:
-    return select_arena(cfg, as_arena(tree), _one(tree), p).map(lambda a: a[0])
+def select_batch(cfg: TreeConfig, tree: UCTree, p: int,
+                 variant: str = "faithful") -> SelectionResult:
+    return select_arena(cfg, as_arena(tree), _one(tree), p,
+                        variant).map(lambda a: a[0])
 
 
 def insert_batch(cfg: TreeConfig, tree: UCTree, sel: SelectionResult):

@@ -37,7 +37,7 @@ def edge_scores_fx(
     node_O,       # [..., 1]  i32
     num_actions,  # [..., 1]  i32
     log_table=None,  # [2X+4] f32, or [G, 2X+4] per slot for [G, Fp]
-                     # rows (omit iff log_ns given)
+                     # or [G, p, Fp] rows (omit iff log_ns given)
     log_ns=None,     # optional precomputed ln(ns) [..., 1] f32
 ):
     f32, i32 = torch.float32, torch.int32
@@ -56,8 +56,10 @@ def edge_scores_fx(
     ne_safe = torch.clamp(ne, min=1).to(f32)
     if log_ns is None and log_table.dim() == 1:
         log_ns = log_table[ns.long()]
-    elif log_ns is None:   # per-slot tables [G, 2X+4] against ns [G, 1]
-        log_ns = torch.gather(log_table, -1, ns.long())
+    elif log_ns is None:   # per-slot tables [G, 2X+4] against ns [G, ..., 1]
+        G = log_table.shape[0]
+        log_ns = torch.gather(log_table, -1, ns.long().reshape(G, -1)
+                              ).reshape(ns.shape)
     inv = _f32(float(fx.FX_INV_SCALE), child)
     beta = _f32(cfg.beta, child)
 

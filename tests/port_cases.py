@@ -1,0 +1,143 @@
+"""Run the JAX package's own test bodies against repro_torch.
+
+``port_module("test_client")`` loads tests/test_client.py with its
+imports pointed at the port: the source is parsed, rewritten on the AST
+and executed as a new module, so every test body runs unchanged against
+repro_torch (no copy of it exists).  The rewrite:
+
+  * ``repro`` / ``repro.x`` imports become ``repro_torch`` / ``repro_torch.x``;
+  * the port's names stand where the JAX package's do (TorchArenaExecutor
+    for JaxArenaExecutor, CudaArenaExecutor for PallasArenaExecutor, the
+    executor name "cuda" for "pallas");
+  * every call of a serving entry point gets ``device="cpu"``, since the
+    port's entry points run on CUDA unless the caller asks for the CPU.
+
+``cases(module, exclude)`` expands each remaining test function's
+``pytest.mark.parametrize`` marks into (id, function, kwargs) cases for
+one parametrised test of the caller.  Test data, not a test module.
+"""
+
+from __future__ import annotations
+
+import ast
+import inspect
+import itertools
+import types
+from pathlib import Path
+
+TESTS = Path(__file__).resolve().parent
+
+NAME_MAP = {"JaxArenaExecutor": "TorchArenaExecutor",
+            "PallasArenaExecutor": "CudaArenaExecutor"}
+VALUE_MAP = {"pallas": "cuda"}
+DEVICE_CALLS = {"SearchClient", "SearchService", "ServiceFrontend",
+                "ArenaPool", "TreeParallelMCTS", "make_arena_executor",
+                "make_intree_executor", "TorchArenaExecutor",
+                "CudaArenaExecutor"} | set(NAME_MAP)
+
+
+def _to_port(name: str) -> str:
+    if name == "repro" or name.startswith("repro."):
+        return "repro_torch" + name[len("repro"):]
+    return name
+
+
+class _ToPort(ast.NodeTransformer):
+    def visit_Import(self, node):
+        for a in node.names:
+            if a.asname is None and _to_port(a.name) != a.name:
+                # `import repro.x` binds `repro`; keep the body's spelling
+                raise NotImplementedError(f"bare import of {a.name}")
+            a.name = _to_port(a.name)
+        return node
+
+    def visit_ImportFrom(self, node):
+        if node.level == 0 and node.module:
+            node.module = _to_port(node.module)
+        for a in node.names:
+            if a.name in NAME_MAP:
+                a.asname = a.asname or a.name
+                a.name = NAME_MAP[a.name]
+        return node
+
+    def visit_Attribute(self, node):
+        self.generic_visit(node)
+        node.attr = NAME_MAP.get(node.attr, node.attr)
+        return node
+
+    def visit_Constant(self, node):
+        if isinstance(node.value, str) and node.value in VALUE_MAP:
+            node.value = VALUE_MAP[node.value]
+        return node
+
+    def visit_Call(self, node):
+        self.generic_visit(node)
+        f = node.func
+        name = f.id if isinstance(f, ast.Name) else getattr(f, "attr", None)
+        if name in DEVICE_CALLS and not any(k.arg == "device"
+                                            for k in node.keywords):
+            node.keywords.append(
+                ast.keyword(arg="device", value=ast.Constant("cpu")))
+        return node
+
+
+_MODULES: dict = {}
+
+
+def port_module(name: str) -> types.ModuleType:
+    """tests/<name>.py, executed with its imports pointed at the port."""
+    if name not in _MODULES:
+        path = TESTS / f"{name}.py"
+        tree = ast.fix_missing_locations(
+            _ToPort().visit(ast.parse(path.read_text(), str(path))))
+        mod = types.ModuleType(f"{name}_on_port")
+        mod.__file__ = str(path)
+        exec(compile(tree, str(path), "exec"), mod.__dict__)
+        _MODULES[name] = mod
+    return _MODULES[name]
+
+
+def cases(name: str, exclude: dict) -> list:
+    """Every test function of tests/<name>.py on the port but those in
+    `exclude` ({test name: why}), with its parametrize marks expanded:
+    a list of (id, function, kwargs)."""
+    mod = port_module(name)
+    out = []
+    for fname, fn in vars(mod).items():
+        if not fname.startswith("test_") or not inspect.isfunction(fn):
+            continue
+        if fname in exclude:
+            continue
+        axes = []
+        for mark in getattr(fn, "pytestmark", []):
+            if mark.name != "parametrize":
+                continue
+            argnames, values = mark.args[0], mark.args[1]
+            ids = mark.kwargs.get("ids")
+            names = [a.strip() for a in argnames.split(",")] \
+                if isinstance(argnames, str) else list(argnames)
+            rows = []
+            for i, v in enumerate(values):
+                vals = v if len(names) > 1 else (v,)
+                tag = (ids[i] if isinstance(ids, (list, tuple))
+                       else ids(v) if callable(ids) else str(v))
+                rows.append((tag, dict(zip(names, vals))))
+            axes.append(rows)
+        for combo in itertools.product(*axes):
+            kw = {}
+            for _, d in combo:
+                kw.update(d)
+            tag = "-".join(t for t, _ in combo)
+            out.append((f"{name}::{fname}" + (f"[{tag}]" if tag else ""),
+                        fn, kw))
+    return out
+
+
+def run_case(fn, kwargs: dict, request) -> None:
+    """Call one case, handing it the pytest fixtures its signature names
+    (tmp_path, monkeypatch, ...) through `request`."""
+    kw = dict(kwargs)
+    for p in inspect.signature(fn).parameters:
+        if p not in kw:
+            kw[p] = request.getfixturevalue(p)
+    fn(**kw)

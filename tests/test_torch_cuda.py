@@ -10,6 +10,9 @@ Trees are grown with the port's plain ops on the CPU from a numpy seed,
 then copied to the card twice: one copy goes through the kernels, the
 other through the plain versions, and every array must be identical;
 the Selection kernel also on its hazard cases (tests/tree_cases.py).
+The serving path (repro_torch.service.SearchClient, executor="cuda") is
+held to the numpy oracle on a short G=16 stream with sessions open; Node
+Insertion must not synchronise, and a retired pool must free its arena.
 The flash-attention kernel is held to its plain version at the JAX flash
 test's tolerances (f32 2e-5, bf16 2e-2); in bf16 also to the plain version
 run in f32 on the same inputs, within one bf16 rounding of the output,
@@ -225,3 +228,107 @@ def test_flash_kernel_refuses_misaligned_bf16_stride():
     with pytest.raises(ValueError, match=r"q: seq stride 132 elements"):
         FA.flash_attention(q, q, q, causal=True)
     assert FA.launches == n
+
+
+# -- the serving path (repro_torch.service) on the card -------------------
+
+def serving_stream(executor, G=16, p=4):
+    """A short seeded stream through SearchClient on the card: 24
+    requests over two shape classes (weighted-queue-depth: cross-pool
+    fused Simulation), compaction sessions below half occupancy, one
+    cancel, one deadline eviction.  Returns ({uid: SearchResult},
+    client stats, xpool batches)."""
+    from repro_torch.envs import BanditTreeEnv, BanditValueBackend
+    from repro_torch.service import SearchClient, SearchRequest
+
+    cfgs = [TreeConfig(X=512, F=4, D=6), TreeConfig(X=256, F=4, D=6)]
+    rng = np.random.RandomState(0)
+    cl = SearchClient(BanditTreeEnv(fanout=4, terminal_depth=10),
+                      BanditValueBackend(), G=G, p=p, executor=executor,
+                      policy="weighted-queue-depth", compact_threshold=0.5,
+                      expansion="vector", device="cuda")
+    try:
+        hs = [cl.submit(SearchRequest(
+            uid=i, seed=int(rng.randint(1000)), budget=int(rng.randint(3, 9)),
+            moves=int(rng.randint(1, 3)), keep_tree=i % 3 == 0,
+            cfg=cfgs[i % 2])) for i in range(24)]
+        hs.append(cl.submit(SearchRequest(uid=24, seed=5, budget=50,
+                                          cfg=cfgs[0]), deadline_supersteps=4))
+        cl.poll(2)
+        assert hs[5].cancel()
+        done = {h.uid: h.result() for h in hs}
+        return done, cl.stats, cl.core.xpool_batches
+    finally:
+        cl.close()
+
+
+@pytest.mark.cuda
+def test_serving_stream_cuda_matches_reference():
+    """SearchClient with executor="cuda" (one launch of each tree kernel
+    per pool tick, sessions at pow2 widths G < 16) gives the numpy
+    oracle's SearchResults, request for request."""
+    need_cuda()
+    n_sel, n_bak = uct_select.launches, uct_backup.launches
+    got, stats, xpool = serving_stream("cuda")
+    assert uct_select.launches - n_sel == stats.supersteps
+    assert uct_backup.launches - n_bak == stats.supersteps
+    want, _, xpool_ref = serving_stream("reference")
+    assert xpool == xpool_ref > 0
+    assert stats.session_gathers >= 1 and stats.session_scatters >= 1
+    for uid, b in want.items():
+        a = got[uid]
+        assert (a.actions, a.rewards, a.supersteps, a.cancelled,
+                a.deadline_evicted) == (b.actions, b.rewards, b.supersteps,
+                                        b.cancelled, b.deadline_evicted), uid
+        for va, vb in zip(a.visit_counts, b.visit_counts):
+            np.testing.assert_array_equal(va, vb)
+        for k in (b.tree_snapshot or {}):
+            np.testing.assert_array_equal(a.tree_snapshot[k],
+                                          b.tree_snapshot[k], err_msg=k)
+
+
+@pytest.mark.cuda
+def test_insert_makes_no_host_sync():
+    """Node Insertion queues its work and returns: under CUDA's sync
+    debug mode "error" neither insert_arena nor the executor's
+    insert_dev (numpy mask, non-blocking upload) synchronises; the one
+    blocking read is insert_host."""
+    need_cuda()
+    from repro_torch.core.executor import CudaExecutor
+
+    cfg = SWEEP[1]
+    ex = CudaExecutor(cfg, 4, device="cuda")
+    active = np.array([True, False, True, True])
+    sel = ex.selection(active, 4)
+    act = torch.tensor(active, device="cuda")
+    copy = from_numpy(to_numpy(ex.trees), "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        dev = ex.insert_dev(active, sel)
+        intree.insert_arena(cfg, copy, act, sel)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert isinstance(dev, torch.Tensor) and dev.is_cuda
+    assert ex.insert_host(dev).shape == (4, 4, cfg.Fp)
+
+
+@pytest.mark.cuda
+def test_retire_frees_the_cuda_arena():
+    """A retired pool gives its arena's memory back to the allocator."""
+    need_cuda()
+    from repro_torch.envs import BanditTreeEnv, BanditValueBackend
+    from repro_torch.service import ArenaPool, SearchRequest
+
+    cfg = TreeConfig(X=4096, F=4, D=6)
+    pool = ArenaPool(cfg, BanditTreeEnv(fanout=4, terminal_depth=10),
+                     BanditValueBackend(), G=4, p=4, device="cuda")
+    pool.submit(SearchRequest(uid=0, seed=1, budget=2))
+    pool.run()
+    arena = sum(t.numel() * t.element_size() for t in vars(pool.exec.trees).values())
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    assert pool.retire()
+    after = torch.cuda.memory_allocated()
+    assert before - after >= arena
+    pool.close()

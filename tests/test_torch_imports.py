@@ -57,3 +57,17 @@ def test_import_loads_no_jax_module():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+def test_serving_import_loads_no_kernel_module():
+    """The serving stack and the env capability probes import no kernel
+    wrapper: the cuda executor loads the kernels when it is built."""
+    code = (
+        "import sys\n"
+        "import repro_torch.service, repro_torch.envs.device\n"
+        "bad = [m for m in sys.modules if m.startswith('repro_torch.kernels')]\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr

@@ -170,9 +170,12 @@ def test_arena_forms_match_jax(cfg):
 
 
 def test_selection_variants_not_ported_raise():
+    """The port has the JAX package's three selection variants (faithful,
+    relaxed, wavefront; tests/test_torch_executor.py holds the other two
+    to JAX); a variant it does not have raises, naming the ones it has."""
     cfg = TCfg(X=16, F=2, D=2)
     from repro_torch.core.tree import init_arena
     arena = init_arena(cfg, 1, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="wavefront"):
         tintree.select_arena(cfg, arena, torch.ones(1, dtype=torch.bool), 2,
-                             variant="wavefront")
+                             variant="pallas")

@@ -4,7 +4,8 @@ package's, on the CPU.
 The port's `reference` (numpy oracle), `faithful` (plain torch ops) and
 `cuda` (the kernel wrappers, which run their plain versions on CPU
 tensors) executors are paired with the JAX package's `reference` and
-`faithful` executors (not `pallas`: ROADMAP.md queue C).  Every
+`faithful` executors (not `pallas`: ROADMAP.md queue C); the port's
+beyond-paper `relaxed` and `wavefront` with the JAX package's.  Every
 superstep's selection, the final tree, run_step actions across a
 re-rooting step and a run under a straggler fault injector must be
 identical.  Integers compare exactly.
@@ -26,7 +27,8 @@ from repro_torch.envs import BanditTreeEnv, BanditValueBackend, PongLiteEnv
 CFG = dict(X=256, F=6, D=9)
 P = 8
 PAIRS = [("reference", "reference"), ("faithful", "faithful"),
-         ("cuda", "faithful"), ("cuda", "reference")]
+         ("cuda", "faithful"), ("cuda", "reference"),
+         ("relaxed", "relaxed"), ("wavefront", "wavefront")]
 
 
 def _systems(port_ex, jax_ex, cfg=CFG, p=P, env="bandit"):
@@ -131,9 +133,13 @@ def test_default_device_needs_cuda():
 
 
 def test_unported_executor_names_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """The port has every executor of the JAX package but `pallas`, whose
+    place its `cuda` executor takes; an unknown name raises, naming the
+    port's executors."""
+    with pytest.raises(NotImplementedError, match="cuda"):
         TreeParallelMCTS(TreeConfig(**CFG), BanditTreeEnv(), BanditValueBackend(),
-                         p=2, executor="wavefront", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+                         p=2, executor="pallas", device="cpu")
+    with pytest.raises(NotImplementedError, match="wavefront"):
         make_executor(TreeConfig(**CFG), "pallas", device="cpu")
-    assert make_executor(TreeConfig(**CFG), "faithful", device="cpu").G == 1
+    for name in ("faithful", "relaxed", "wavefront"):
+        assert make_executor(TreeConfig(**CFG), name, device="cpu").G == 1
