@@ -83,7 +83,25 @@ Phases (each raises on any failure, so the exit code is not 0):
      and at a session's 8 slots; Node Insertion (which must not
      synchronise: insert_dev under CUDA's sync debug mode "error"),
      beside its earlier nonzero() form, and finalize, at the main path's
-     shape.
+     shape;
+ 10. the fused K-superstep dispatch at the same width: one G=16 arena on
+     the cuda executor, where a dispatch (one captured CUDA graph of the
+     superstep body, replayed) must equal the plain (faithful) eager
+     body from the same state bit for bit, a submit must run under
+     CUDA's sync debug mode "error", and a profiled window of one dispatch's replays must show
+     each tree kernel once per replay (the body's device ms and kernel
+     count); a short stream over an env whose twin refuses depth >= 2
+     leaves, held to a numpy-oracle client, where the expand escape must
+     fire; then phase 9's stream through SearchClient(cuda,
+     supersteps_per_dispatch=K) for K = 8 and 32 (each twice, in the
+     order 8, 32, 32, 8), every SearchResult equal to phase 9's oracle
+     results, with commit escapes, fused supersteps on session
+     sub-arenas, the kernels' launches equal to the replays plus the
+     eager launches, and retired pools freeing their memory;
+     searches/s, ms per dispatch by part, and the device's busy share
+     over a profiled window of 40 ticks; then ten alternating pairs of
+     the stream at K=1 and K=8, each held to the oracle, for the ratio
+     of their speeds.
 
 It prints JSON lines; the line before the last is {"kernels": [...]} and
 the last is {"ok": true, "device": {...}}.  It imports nothing of the JAX
@@ -1109,11 +1127,11 @@ def serving_classes():
     return [TreeConfig(**PONG), TreeConfig(**dict(PONG, X=28_000))]
 
 
-def serving_client(executor: str, device=None, **kw):
+def serving_client(executor: str, device=None, env=None, **kw):
     from repro_torch.envs import BanditTreeEnv, BanditValueBackend
     from repro_torch.service import SearchClient
 
-    return SearchClient(BanditTreeEnv(fanout=6, terminal_depth=12),
+    return SearchClient(env or BanditTreeEnv(fanout=6, terminal_depth=12),
                         BanditValueBackend(), G=SERVE_G, p=SERVE_P,
                         executor=executor, policy="weighted-queue-depth",
                         compact_threshold=0.5,
@@ -1251,7 +1269,7 @@ def phase_serving(mc) -> dict:
     insert_finalize_times(mc)
     emit(phase="serving", seconds=time.perf_counter() - t_phase,
          variants=variants)
-    return {"launches": launches, **kernels}
+    return {"launches": launches, "want": want, **kernels}
 
 
 def retired_bytes(core) -> list:
@@ -1442,6 +1460,354 @@ def insert_finalize_times(mc):
          insert_sync_free=new_t, insert_nonzero=old_t, finalize=fin_t)
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the fused K-superstep dispatch at the paper's Pong width
+# ---------------------------------------------------------------------------
+
+FUSED_KS = (8, 32)
+FUSED_PAIRS = 10    # alternating K=1 / K=8 stream pairs for the ratio
+
+
+def partial_env():
+    """BanditTreeEnv whose device twin refuses transitions from depth >= 2
+    leaves (tests/test_executor_matrix.py's _PartialDeviceEnv): every
+    deeper expansion forces the fused dispatch's expand escape."""
+    from repro_torch.envs import BanditTreeEnv
+
+    class PartialBanditEnv(BanditTreeEnv):
+        def resolvable_device(self, states, actions):
+            return states[..., 0] < 2
+
+    return PartialBanditEnv(fanout=6, terminal_depth=12)
+
+
+SPIN_CYCLES = 2_000_000     # torch.cuda._sleep: about 1 ms of the card
+
+
+def device_intervals_ms(prof, after_gap: bool = False) -> tuple:
+    """(union of the device events' intervals in ms, device events,
+    {name: count}) of a torch.profiler trace, spin kernels left out;
+    with after_gap, only the events after the widest gap between two
+    consecutive ones (a spin kernel's place)."""
+    from torch.autograd import DeviceType
+
+    evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                  and "spin_kernel" not in e.name),
+                 key=lambda e: e.time_range.start)
+    if after_gap and len(evs) > 1:
+        gaps = [b.time_range.start - a.time_range.end
+                for a, b in zip(evs, evs[1:])]
+        evs = evs[1 + int(np.argmax(gaps)):]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in evs)
+    union, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            union += b - max(a, end)
+            end = b
+    names: dict = {}
+    for e in evs:
+        names[e.name] = names.get(e.name, 0) + 1
+    return union / 1e3, evs, names
+
+
+def fused_graph_checks() -> dict:
+    """One G=16 arena at the Pong width on the cuda executor: the graph
+    dispatch against the plain (faithful) eager body from the same state
+    (bit for bit),
+    a submit under CUDA's sync debug mode "error", and a profiled window
+    of one dispatch's replays (each tree kernel once per replay; the
+    body's device ms and kernel count)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import fused
+    from repro_torch.core.executor import CudaExecutor
+    from repro_torch.core.tree import from_numpy, to_numpy
+    from repro_torch.envs import BanditTreeEnv, BanditValueBackend
+
+    cfg, G, p, K = serving_classes()[0], SERVE_G, SERVE_P, 8
+    env, sim = BanditTreeEnv(fanout=6, terminal_depth=12), BanditValueBackend()
+    ex = CudaExecutor(cfg, G, device=DEV)
+    host = np.zeros((G, cfg.X) + env.state_shape, np.float32)
+    for g in range(G):
+        host[g, 0] = env.initial_state(1000 + g)
+        ex.reset_slot(g, env.num_actions(host[g, 0]))
+    active = np.ones(G, bool)
+    budgets = np.full(G, 10_000, np.int32)
+    sizes = np.ones(G, np.int64)
+
+    def rows():
+        return [host[g, :sizes[g]] for g in range(G)]
+
+    def absorb(d):
+        for g in range(G):
+            lo, new = d.written(g)
+            host[g, lo: lo + len(new)] = new
+        sizes[:] = d.sizes
+
+    t0 = time.perf_counter()
+    absorb(ex.run_supersteps(active, p, K, env, sim, rows(), budgets, False))
+    capture_s = time.perf_counter() - t0
+    absorb(ex.run_supersteps(active, p, K, env, sim, rows(), budgets, False))
+    base, base_rows = to_numpy(ex.trees), rows()
+    got = ex.run_supersteps(active, p, K, env, sim, base_rows, budgets, False)
+    plain = fused.FusedProgram(cfg, "faithful", from_numpy(base, DEV), p, env,
+                               sim, False)
+    want = plain.collect(plain.submit(active, K, base_rows, budgets))
+    same = ((got.n, got.escape) == (want.n, want.escape)
+            and all(np.array_equal(getattr(got, k), getattr(want, k))
+                    for k in ("size_pre", "sizes", "states_lo"))
+            and all(np.array_equal(got.written(g)[1], want.written(g)[1])
+                    for g in range(G)))
+    a, b = to_numpy(ex.trees), to_numpy(plain.trees)
+    same = same and all(np.array_equal(a[k], b[k]) for k in a)
+    if not same or got.escape != "ran_k":
+        raise AssertionError(f"fused graph dispatch differs from the eager "
+                             f"body ({got.escape}/{want.escape})")
+    body_ms_events = got.device_ms / got.replays
+    del plain
+    absorb(got)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pend = ex.run_supersteps_submit(active, p, K, env, sim, rows(),
+                                        budgets, False)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    absorb(ex.run_supersteps_collect(pend))
+    prog = ex.fused_program(p, env, sim, False)
+    # the host's cost of queueing a replay (the ST rows the two windows
+    # below write stay on the card, where the next bodies read them)
+    runs = prog.prepare(active, K, rows(), budgets)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prog.run(runs)
+    enqueue_us = 1e6 * (time.perf_counter() - t0) / runs
+    torch.cuda.synchronize()
+    runs = prog.prepare(active, K, rows(), budgets)
+    torch.cuda.synchronize()
+    # late in a long process torch.profiler has lost the first kernel
+    # records of the first graph launch in a window (15 of 169,
+    # uct_select's among them), so one predicated (no-op) replay primes
+    # the window, a spin kernel separates it, and only what follows the
+    # spin is counted
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        prog.stop.fill_(True)
+        prog.graph.replay()
+        prog.stop.fill_(False)
+        torch.cuda._sleep(SPIN_CYCLES)
+        prog.run(runs)
+        torch.cuda.synchronize()
+    union_ms, evs, names = device_intervals_ms(prof, after_gap=True)
+    counts = {k: sum(v for n, v in names.items() if k in n)
+              for k in ("uct_select_kernel", "uct_backup_kernel")}
+    if any(v != runs for v in counts.values()):
+        t0 = min(e.time_range.start for e in evs)
+        starts = sorted(e.time_range.start - t0 for e in evs
+                        if "uct_select_kernel" in e.name)
+        raise AssertionError(f"profiled replays: {counts} kernel launches "
+                             f"in {runs} replays (uct_select at +{starts} us "
+                             f"of {len(evs)} records)")
+    ex.release()
+    out = {"G": G, "p": p, "replays": runs, "graph_equals_eager": True,
+           "submit_sync_free": True, "capture_s": capture_s,
+           "enqueue_us_per_replay": enqueue_us,
+           "body_device_ms_events": body_ms_events,
+           "body_device_ms_profiler": sum(e.time_range.elapsed_us()
+                                          for e in evs) / 1e3 / runs,
+           "body_busy_ms_profiler": union_ms / runs,
+           "body_kernels": len(evs) / runs, "kernel_launches": counts,
+           "body_kernel_names": len(names)}
+    emit(phase="fused_graph", shape=f"Pong X={cfg.X} Fp={cfg.Fp} D={cfg.D}",
+         **out)
+    return out
+
+
+def fused_busy(K: int, stream) -> dict:
+    """The device's busy share over a profiled window of the fused stream:
+    the stream's requests submitted, 20 ticks run, then 40 ticks under
+    torch.profiler (union of the device events' intervals / host wall)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.service import SearchRequest
+
+    cfgs = serving_classes()
+    cl = serving_client("cuda", supersteps_per_dispatch=K)
+    for r in stream:
+        cl.submit(SearchRequest(uid=r["uid"], seed=r["seed"], budget=r["budget"],
+                                moves=r["moves"], cfg=cfgs[r["cls"]]))
+    cl.poll(20)
+    torch.cuda.synchronize()
+    s0 = cl.stats.supersteps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ticks = cl.poll(40)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    supersteps = cl.stats.supersteps - s0
+    cl.close()
+    union_ms, evs, _ = device_intervals_ms(prof)
+    return {"ticks": ticks, "pool_supersteps": supersteps, "wall_ms": wall,
+            "device_busy_ms": union_ms, "busy": union_ms / wall,
+            "device_events": len(evs)}
+
+
+def fused_expand_stream() -> dict:
+    """A short stream (4 requests at the Pong width, budget 24, 1 move)
+    over an env whose twin refuses depth >= 2 leaves: the expand escape
+    must fire, and every result equal a numpy-oracle client's on the
+    same env."""
+    stream = [dict(uid=200 + i, seed=31 * i + 3, cls=0, budget=24, moves=1,
+                   keep_tree=True) for i in range(4)]
+    out = {}
+    for ex, K in (("cuda", 8), ("reference", 1)):
+        cl = serving_client(ex, env=partial_env(), supersteps_per_dispatch=K)
+        t0 = time.perf_counter()
+        out[ex] = submit_all(cl, stream)
+        out[ex + "_s"] = time.perf_counter() - t0
+        out[ex + "_stats"] = cl.stats
+        cl.close()
+    n = results_identical(out["cuda"], out["reference"],
+                          "fused expand escape vs the numpy oracle")
+    st = out["cuda_stats"]
+    if st.fused_escape_expand == 0:
+        raise AssertionError("the expand escape never fired")
+    return {"requests": n, "identical": True,
+            "escape_expand": st.fused_escape_expand,
+            "fused_dispatches": st.fused_dispatches, "card_s": out["cuda_s"],
+            "reference_s": out["reference_s"]}
+
+
+def fused_pairs(stream, want) -> dict:
+    """The fused stream's speed against the phase-by-phase one's from
+    paired runs: FUSED_PAIRS pairs of phase 9's stream at K=1 and at K=8
+    on the cuda executor, alternating which runs first, every result held
+    to phase 9's oracle results.  The ratio of each pair's walls, since
+    the host's times drift within a call."""
+    walls = {1: [], 8: []}
+    for i in range(FUSED_PAIRS):
+        for K in ((1, 8) if i % 2 == 0 else (8, 1)):
+            cl = serving_client("cuda", supersteps_per_dispatch=K)
+            t0 = time.perf_counter()
+            got = drive_stream(cl, stream)
+            torch.cuda.synchronize()
+            walls[K].append(time.perf_counter() - t0)
+            cl.close()
+            results_identical(got, want, f"paired K={K} vs the numpy oracle")
+    ratio = [a / b for a, b in zip(walls[1], walls[8])]
+    return {"pairs": FUSED_PAIRS, "wall_s_K1": walls[1], "wall_s_K8": walls[8],
+            "speed_ratio_K8_over_K1": ratio,
+            "median_ratio": float(np.median(ratio)),
+            "min_ratio": min(ratio), "max_ratio": max(ratio)}
+
+
+def phase_fused(want) -> dict:
+    """Phase 9's stream through SearchClient(supersteps_per_dispatch=K)
+    for K in FUSED_KS, held to phase 9's numpy-oracle results; the
+    expand escape on a short stream; the graph against the eager body,
+    the sync-free submit and the profiled replays.  Returns the tree
+    kernels' launches per K."""
+    from repro_torch.core import fused
+    from repro_torch.kernels import uct_backup, uct_select
+
+    t_phase = time.perf_counter()
+    graph = fused_graph_checks()
+    expand = fused_expand_stream()
+    emit(phase="fused_expand", **expand)
+    stream = serving_stream()
+    launches = {}
+    walls = {K: [] for K in FUSED_KS}
+    capture_ms = {K: [] for K in FUSED_KS}
+    # each K twice, in the order 8, 32, 32, 8: the first run pays the
+    # process's first launches of the sub-arena widths' kernels (in its
+    # captures), and the host's times drift within a call; the detailed
+    # line is each K's second run
+    for K in FUSED_KS + FUSED_KS[::-1]:
+        uct_select.launches = uct_backup.launches = 0
+        fused.captures = 0
+        fused.capture_s = 0.0
+        cl = serving_client("cuda", supersteps_per_dispatch=K)
+        t0 = time.perf_counter()
+        got = drive_stream(cl, stream)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {"uct_select": uct_select.launches,
+                  "uct_backup": uct_backup.launches}
+        captures, capture_s = fused.captures, fused.capture_s
+        stats, ticks = cl.stats, cl.core.ticks
+        replays = stats.fused_replays
+        freed = retired_bytes(cl.core)
+        cl.close()
+        n = results_identical(got, want, f"fused K={K} vs the numpy oracle")
+        walls[K].append(wall)
+        capture_ms[K].append(1e3 * capture_s)
+        # supersteps outside a fused body: ticks capped to one superstep
+        # by a deadline run the phase-by-phase path; an expand escape's
+        # completion runs one more eager BackUp
+        phase_path = (stats.supersteps - stats.fused_supersteps
+                      - stats.fused_escape_expand)
+        checks = {
+            "fused_dispatches": stats.fused_dispatches > 0,
+            "escape_commit": stats.fused_escape_commit > 0,
+            "fused_on_sessions": stats.fused_compacted_supersteps > 0,
+            "select_launches": counts["uct_select"]
+            == replays + captures + phase_path,
+            "backup_launches": counts["uct_backup"]
+            == replays + captures + phase_path + stats.fused_escape_expand,
+            "retired_memory_freed": bool(freed) and all(freed),
+            "cancelled": got[CANCEL_UID].cancelled,
+            "deadline_evicted": got[DEADLINE_UID].deadline_evicted,
+        }
+        bad = [k for k, ok in checks.items() if not ok]
+        if bad:
+            raise AssertionError(f"fused phase checks failed at K={K}: {bad} "
+                                 f"(launches {counts}, replays {replays}, "
+                                 f"captures {captures}, phase path "
+                                 f"{phase_path})")
+        if len(walls[K]) == 1:      # the first run: its wall is reported only
+            continue
+        d = max(stats.fused_dispatches, 1)
+        busy = fused_busy(K, stream)
+        emit(phase="fused", K=K, executor="cuda", G=SERVE_G, p=SERVE_P,
+             requests=n, identical=True, checks=checks, wall_s=wall,
+             searches_per_s=n / wall, ticks=ticks,
+             pool_supersteps=stats.supersteps,
+             ms_per_pool_superstep=1e3 * wall / stats.supersteps,
+             dispatches=stats.fused_dispatches,
+             escapes={"ran_k": stats.fused_ran_k,
+                      "commit": stats.fused_escape_commit,
+                      "expand": stats.fused_escape_expand},
+             supersteps_per_dispatch=stats.fused_supersteps / d,
+             fused_supersteps=stats.fused_supersteps,
+             fused_compacted_supersteps=stats.fused_compacted_supersteps,
+             phase_path_supersteps=phase_path, replays=replays,
+             captures=captures, capture_ms=1e3 * capture_s,
+             launches=counts,
+             ms_per_dispatch={
+                 "capture": 1e3 * capture_s / d,
+                 "host_prep_and_upload":
+                     1e3 * (stats.t_fused_submit - capture_s) / d,
+                 "device": 1e3 * stats.t_fused_device / d,
+                 "read_back": 1e3 * stats.t_fused_collect / d,
+                 "commit": 1e3 * stats.t_fused_finish / d,
+                 # admission, scheduling and retirement: the rest of the wall
+                 "other": 1e3 * (wall - stats.t_fused_submit
+                                 - stats.t_fused_collect
+                                 - stats.t_fused_finish) / d},
+             body_device_ms=graph["body_device_ms_events"],
+             body_kernels=graph["body_kernels"],
+             busy_window=busy, retired_arena_bytes_freed=freed,
+             session_gathers=stats.session_gathers)
+        launches[K] = counts
+    emit(phase="fused_paired", **fused_pairs(stream, want))
+    emit(phase="fused", seconds=time.perf_counter() - t_phase,
+         wall_s={f"K{K}": w for K, w in walls.items()},
+         capture_ms={f"K{K}": c for K, c in capture_ms.items()},
+         searches_per_s={f"K{K}": [len(want) / x for x in w]
+                          for K, w in walls.items()})
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1475,8 +1841,11 @@ def main() -> int:
     kernels.append(dict(flash, launches=lm_launches["flash_attention"],
                         launches_serve=serve_launches))
     serving = phase_serving(mc)
+    fused_launches = phase_fused(serving["want"])
     for row in kernels[:2]:
         row["launches_serving"] = serving["launches"][row["name"]]
+        row["launches_fused"] = {f"K{K}": fused_launches[K][row["name"]]
+                                 for K in FUSED_KS}
         row["serving_device_ms"] = {
             f"G{G}": serving[f"G{G}"][row["name"] + "_device_ms"]
             for G in (SERVE_G, SERVE_G // 2)}

@@ -33,9 +33,18 @@ first A rows back.  ``open_session`` wraps the pair in a
 CompactionSession that keeps the sub-arena resident across supersteps:
 one gather when the active set forms, one scatter when it changes or a
 snapshot is read.  Per-slot arithmetic is position-independent, so
-compaction never changes what a slot computes.  The fused K-superstep
-dispatch and sharding of the JAX module are later slices of the port
-(ROADMAP.md queue A items 3 and 6).
+compaction never changes what a slot computes.  A closed session
+releases its sub-arena.
+
+Fused K-superstep dispatch (core.fused): the device executors (not the
+oracle, which keeps the phase-by-phase path on purpose) run up to K
+supersteps per call with ``run_supersteps``, or split into the
+non-blocking ``run_supersteps_submit`` and the blocking
+``run_supersteps_collect``.  Each executor caches one FusedProgram (on
+the cuda executor on a card: one captured CUDA graph of the superstep
+body) for its arena, and drops it when its arena is released or the
+program's key changes.  Sharding of the JAX module is a later slice of
+the port (ROADMAP.md queue A item 6).
 """
 
 from __future__ import annotations
@@ -82,6 +91,13 @@ class InTreeExecutor(Protocol):
     def write_slot(self, g: int, arrays: dict) -> None: ...
     def block(self) -> None: ...
     def release(self) -> None: ...
+    # OPTIONAL fused fast path (device executors only; absence of the
+    # method is what keeps a pool on the phase-by-phase path): up to K
+    # supersteps per call, see core.fused.  Mutates the arena in place
+    # and returns a FusedDispatch; run_supersteps ==
+    # run_supersteps_collect(run_supersteps_submit(...)).
+    # def run_supersteps(self, active, p, K, env, sim, states,
+    #                    budget_left, alternating) -> FusedDispatch: ...
     def gather_sub(self, slot_idx: np.ndarray, Gc: int) -> "InTreeExecutor": ...
     def scatter_sub(self, sub: "InTreeExecutor", slot_idx: np.ndarray) -> None: ...
     def open_session(self, slot_idx: np.ndarray, Gc: int,
@@ -162,9 +178,12 @@ class CompactionSession:
         return False
 
     def close(self) -> bool:
-        """Final sync; the session is unusable afterwards.  True if the
-        close actually scattered."""
+        """Final sync, then the sub-arena is released (its tensors, and a
+        fused dispatch's cached graph over them); the session is unusable
+        afterwards.  True if the close actually scattered."""
         scattered = self.sync() if self.open else False
+        if self.open:
+            self.sub.release()
         self.open = False
         return scattered
 
@@ -190,6 +209,7 @@ class TorchExecutor:
         self.device = resolve_device(device)
         self.trees = (init_arena(cfg, G, device=self.device) if _trees is None
                       else _trees)
+        self._fused = None      # cached core.fused.FusedProgram
 
     def _mask(self, active) -> torch.Tensor:
         return intree.as_mask(active, self.device)
@@ -247,9 +267,46 @@ class TorchExecutor:
             torch.cuda.synchronize(self.device)
 
     def release(self):
-        """Drop the arena's tensors (cold-pool retirement); the executor is
-        unusable afterwards."""
+        """Drop the arena's tensors and the fused program cached over them
+        (cold-pool retirement, session close); the executor is unusable
+        afterwards."""
         self.trees = None
+        self._fused = None
+
+    # -- fused multi-superstep dispatch (core.fused) -------------------
+    def fused_program(self, p: int, env, sim, alternating: bool):
+        """The FusedProgram for this arena, captured on first use and
+        again whenever its key changes (the old one, and its graph, are
+        dropped first)."""
+        from repro_torch.core import fused
+
+        key = fused.program_key(self.cfg, self.variant, self.trees, p, env,
+                                sim, alternating)
+        if self._fused is None or self._fused.key != key:
+            self._fused = None
+            self._fused = fused.FusedProgram(self.cfg, self.variant,
+                                             self.trees, p, env, sim,
+                                             alternating)
+        return self._fused
+
+    def run_supersteps(self, active, p: int, K: int, env, sim, states,
+                       budget_left, alternating: bool):
+        """Up to K fused supersteps (core.fused), in place on the arena.
+        Returns the FusedDispatch."""
+        return self.run_supersteps_collect(self.run_supersteps_submit(
+            active, p, K, env, sim, states, budget_left, alternating))
+
+    def run_supersteps_submit(self, active, p: int, K: int, env, sim, states,
+                              budget_left, alternating: bool):
+        """Non-blocking half of run_supersteps: queue the dispatch and
+        return its PendingDispatch without a host read."""
+        return self.fused_program(p, env, sim, alternating).submit(
+            active, K, states, budget_left)
+
+    def run_supersteps_collect(self, pend):
+        """Blocking half: the one read of a submitted dispatch.
+        run_supersteps == collect(submit(...))."""
+        return pend.program.collect(pend)
 
     # -- compaction (gather active slots into a dense sub-arena) -------
     def _spawn(self, trees: UCTree, Gc: int) -> "TorchExecutor":

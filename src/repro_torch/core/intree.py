@@ -22,6 +22,10 @@ accelerator's three functions:
                    pass: integer adds commute, so it equals the
                    sequential program bit for bit).
 
+finalize_arena writes the host expansion's metadata back (host-side NULL
+filtering); finalize_arena_device is its form with no host read, for
+the fused K-superstep dispatch (core.fused).
+
 Every op takes an arena (UCTree with a leading [G] axis) and a [G]
 ``active`` mask, and UPDATES THE ARENA'S TENSORS IN PLACE where the JAX
 code rebuilds arrays; inactive slots are left untouched.  Their selection
@@ -318,7 +322,7 @@ def finalize_arena(arena: UCTree, nodes, num_actions, terminal,
     """Host metadata write-back after the 1-step simulations, in place.
     Inputs carry a leading [G] axis and are NULL-padded per slot; the
     NULL rows are dropped on the host, so the scatter needs no device
-    round trip."""
+    round trip.  (finalize_arena_device is the form with no host read.)"""
     dev = arena.child.device
     host = lambda x: np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x)
     put = lambda x: torch.as_tensor(x, device=dev)
@@ -332,6 +336,29 @@ def finalize_arena(arena: UCTree, nodes, num_actions, terminal,
         g, j = np.nonzero(pp != NULL)
         arena.edge_P[put(g), put(pp[g, j].astype(np.int64))] = put(
             host(priors_fx)[g, j].astype(np.int32))
+
+
+def finalize_arena_device(arena: UCTree, nodes: torch.Tensor,
+                          num_actions: torch.Tensor,
+                          terminal: torch.Tensor) -> None:
+    """finalize_arena without a host read, for the fused dispatch: int32
+    [G, K] tensors on the arena's device, NULL-padded, no priors (the
+    expand-all pools that produce priors never fuse).
+
+    The writes are insert_arena's idiom: the node ids are distinct new
+    nodes, so each written word takes one valid lane's value as a
+    scatter-add of ``valid * (new - prior)``, and every NULL lane adds 0
+    at its slot's node 0."""
+    X = arena.num_actions.shape[1]
+    valid = nodes != NULL
+    idx = (_slots(arena)[:, None] * X
+           + torch.where(valid, nodes, 0).long()).reshape(-1)
+    v = valid.reshape(-1).to(i32)
+    n_act, term = arena.num_actions.view(-1), arena.terminal.view(-1)
+    d_act = v * (num_actions.reshape(-1) - n_act[idx])
+    d_term = v * (terminal.reshape(-1) - term[idx])
+    n_act.index_add_(0, idx, d_act)
+    term.index_add_(0, idx, d_term)
 
 
 # --------------------------------------------------------------------------

@@ -5,13 +5,17 @@ integer hash of the action history.  Deterministic, hashable, trivially
 cheap — ideal for property tests of the in-tree machinery (the paper's
 correctness claims are about the tree, not the game).
 
-The numpy half of repro.envs.bandit_tree (the device twins are a later
-slice of the port).
+The port of repro.envs.bandit_tree: the numpy halves, and the device
+twins the fused K-superstep dispatch runs (torch ops on the states'
+device, bit-equal to the numpy halves; envs.device).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from repro_torch.envs.device import hash24_device
 
 _M64 = (1 << 64) - 1
 
@@ -54,6 +58,14 @@ class BanditValueBackend:
         h = np.asarray(states)[:, 1].astype(np.int64)
         m = (_hash_batch(h, 4242) % 2000).astype(np.float32)
         return (m - np.float32(1000.0)) * np.float32(1e-3), None
+
+    def evaluate_device(self, states: torch.Tensor) -> torch.Tensor:
+        """Device twin of evaluate(): bit-equal values (see NOTE).  Two
+        eager ops, so nothing can contract them into an FMA; the factor
+        is the f32 tensor of 1e-3, the numpy half's np.float32(1e-3)."""
+        m = (hash24_device(states[..., 1], 4242) % 2000).to(torch.float32)
+        milli = torch.full((), 1e-3, dtype=torch.float32, device=states.device)
+        return (m - 1000.0) * milli
 
 
 class BanditTreeEnv:
@@ -127,3 +139,31 @@ class BanditTreeEnv:
         s[:, 3] = self._na_batch(h2, d2)
         r = (_hash_batch(h2, 999) % 1000) / 1000.0 - 0.5
         return s, r, term
+
+    # ---- device twins (envs.device): torch ops, bit-identical ----
+    #
+    # No rewards on the device: the fused dispatch only resolves
+    # expansions; rewards are consumed at move commits, on the host.
+    # Every field round-trips exactly through f32 (depth < 2^24, 24-bit
+    # hash, 0/1 terminal flag, n_actions <= F).
+
+    def _na_device(self, h: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
+        if self.varying_fanout:
+            na = 1 + hash24_device(h, 7777) % self.F
+        else:
+            na = torch.full(h.shape, self.F, dtype=torch.int32, device=h.device)
+        return torch.where(depth >= self.terminal_depth, 0, na)
+
+    def num_actions_device(self, states: torch.Tensor) -> torch.Tensor:
+        return states[..., 3].to(torch.int32)
+
+    def step_device(self, states: torch.Tensor, actions: torch.Tensor):
+        d = states[..., 0].to(torch.int32)
+        h2 = hash24_device(states[..., 1], actions)
+        d2 = d + 1
+        term = d2 >= self.terminal_depth
+        cols = torch.stack([d2, h2, term.to(torch.int32),
+                            self._na_device(h2, d2)], -1).to(states.dtype)
+        s = torch.zeros_like(states)
+        s[..., :4] = cols
+        return s, term

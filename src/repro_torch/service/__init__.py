@@ -24,7 +24,10 @@ Compatibility adapters (deprecated surface, kept working):
       repro_torch.service.arena module itself is a lazy deprecation shim.
 
 Everything runs on CUDA with the hand-written tree kernels unless the
-caller passes ``device="cpu"`` (or another executor).
+caller passes ``device="cpu"`` (or another executor);
+``supersteps_per_dispatch=K > 1`` moves the pools onto the fused
+K-superstep device dispatch (core.fused).  ``n_shards > 1`` and
+``overlap=True`` raise NotImplementedError (ROADMAP.md queue A item 6).
 """
 
 from repro_torch.service.client import SearchClient, SearchHandle

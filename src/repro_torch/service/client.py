@@ -177,9 +177,15 @@ class SearchClient:
     default; traced runs are bit-identical to untraced ones
     (tests/test_torch_service.py).
 
+    Fused dispatch: `supersteps_per_dispatch=K > 1` runs each pool's
+    supersteps K at a time on the device (core.fused; on the ``cuda``
+    executor, replays of one captured CUDA graph of the superstep body)
+    when its env and sim backend have device twins, escaping to the host
+    at move commits and unresolvable expansions; per-request results are
+    unchanged, and the clock advances by the supersteps a tick ran.
+
     Not ported yet (refused with NotImplementedError naming the ROADMAP.md
-    queue A item): `supersteps_per_dispatch > 1` (item 3), `n_shards > 1`
-    and `overlap=True` (item 6).
+    queue A item): `n_shards > 1` and `overlap=True` (item 6).
     """
 
     def __init__(

@@ -61,10 +61,18 @@ Timing honesty: the phase timers fence the device (executor.block(),
 torch.cuda.synchronize on a card) only when tracing is on; untraced, the
 select phase's host reads are the only waits, as in the reference.
 
+Fused K-superstep dispatch (``supersteps_per_dispatch = K > 1``,
+core.fused): `fused_dispatch()` runs admission, then up to K supersteps
+on the device in one dispatch (on the ``cuda`` executor: K replays of
+one captured CUDA graph of the superstep body, no host read between
+them), escaping at a move-commit boundary or at an expansion the env's
+device twin cannot resolve (that superstep is completed through the
+ordinary host path), then commits moves.  It needs a device executor,
+an env and a sim backend with device twins, and no expand-all.
+
 Not ported yet, and refused at construction with NotImplementedError:
-the fused K-superstep dispatch (``supersteps_per_dispatch > 1``,
-ROADMAP.md queue A item 3), multi-device shards (``n_shards > 1``) and
-the overlap mode's pipelined gangs (``overlap=True``), both item 6.
+multi-device shards (``n_shards > 1``) and the overlap mode's pipelined
+gangs (``overlap=True``), ROADMAP.md queue A item 6.
 
 Determinism: with a deterministic SimulationBackend the per-slot tree
 evolution is bit-identical to a single-tree TreeParallelMCTS run of the
@@ -87,7 +95,9 @@ from repro_torch.core.expand import ExpansionEngine
 from repro_torch.core.mcts import Environment, SimulationBackend
 from repro_torch.core.state_table import StateTable
 from repro_torch.core.tree import NULL, TreeConfig, bucket_key, resolve_device
-from repro_torch.envs.device import has_async_sim
+from repro_torch.envs.device import (
+    has_async_sim, has_device_env, has_device_sim,
+)
 from repro_torch.obs.metrics import NULL_REGISTRY
 from repro_torch.obs.trace import NULL_TRACER
 
@@ -97,14 +107,9 @@ def bucket_label(cfg: TreeConfig) -> str:
     return f"X{cfg.X}_D{cfg.D}_Fp{cfg.Fp}"
 
 
-def check_unported(supersteps_per_dispatch: int = 1, n_shards: int = 1,
-                   overlap: bool = False) -> None:
+def check_unported(n_shards: int = 1, overlap: bool = False) -> None:
     """Refuse the serving modes the port does not have yet, naming the
     ROADMAP.md queue A item that brings each."""
-    if int(supersteps_per_dispatch) > 1:
-        raise NotImplementedError(
-            "supersteps_per_dispatch > 1 (fused K-superstep dispatch) is not "
-            "ported yet: ROADMAP.md queue A item 3")
     if int(n_shards) > 1:
         raise NotImplementedError(
             "n_shards > 1 (multi-device shards) is not ported yet: ROADMAP.md "
@@ -221,6 +226,17 @@ class ServiceStats:
     t_host: float = 0.0          # ST / env expansion + scheduling bookkeeping
     t_expand: float = 0.0        # expansion-engine share of t_host
     t_sim: float = 0.0
+    fused_dispatches: int = 0    # fused K-superstep device dispatches issued
+    fused_supersteps: int = 0    # supersteps that ran inside a fused dispatch
+    fused_ran_k: int = 0         # dispatches that ran their full K budget
+    fused_escape_commit: int = 0   # dispatches stopped at a move boundary
+    fused_escape_expand: int = 0   # dispatches escaped for host expansion
+    fused_compacted_supersteps: int = 0  # fused supersteps on a sub-arena
+    fused_replays: int = 0       # superstep bodies run (graph replays)
+    t_fused_submit: float = 0.0  # host: ST rows + upload + queueing the bodies
+    t_fused_collect: float = 0.0  # host: the wait for the one read-back
+    t_fused_device: float = 0.0  # device: CUDA events around the bodies
+    t_fused_finish: float = 0.0  # host: ST write-back, accounting, commits
     # admission-wait histogram: {ticks_waited: n_requests}
     wait_supersteps: dict = dataclasses.field(default_factory=dict)
 
@@ -284,7 +300,7 @@ class ArenaPool:
         overlap: bool = False,
         device=None,
     ):
-        check_unported(supersteps_per_dispatch, n_shards, overlap)
+        check_unported(n_shards, overlap)
         self.cfg, self.env, self.sim = cfg, env, sim
         self.G, self.p = G, p
         self.executor_name = executor
@@ -347,6 +363,11 @@ class ArenaPool:
         # keep the sub-arena resident across supersteps; False restores
         # the per-superstep gather/scatter for comparison
         self.persistent_compaction = persistent_compaction
+        # fused K-superstep device dispatch (core.fused): K > 1 runs it
+        # when the executor, env and sim backend all have device legs
+        # (fused_capable); K = 1 keeps the phase-by-phase path, the
+        # oracle the fused path is held to
+        self.supersteps_per_dispatch = max(1, int(supersteps_per_dispatch))
         self.exec = self._make_executor()
         self.sts = self._make_state_tables()
         self.slots: list[Optional[_Slot]] = [None] * G
@@ -767,6 +788,171 @@ class ArenaPool:
         self.finish_superstep(pend, values, priors, t_sim=t_sim)
         return True
 
+    # ---- fused K-superstep device dispatch (core.fused) ----
+    def fused_capable(self) -> bool:
+        """True when this pool can run fused dispatches: a device executor
+        (the reference keeps the phase-by-phase oracle), device twins of
+        the env and the sim backend, and no expand-all priors (those force
+        the host expansion path)."""
+        return (self.exec is not None and not self.cfg.expand_all
+                and hasattr(self.exec, "run_supersteps")
+                and has_device_env(self.env) and has_device_sim(self.sim))
+
+    def fused_dispatch(self, max_supersteps: Optional[int] = None) -> int:
+        """Run up to min(supersteps_per_dispatch, max_supersteps) BSP
+        supersteps in ONE device dispatch, escaping early at a
+        move-commit boundary or an expansion the env's device twin
+        cannot resolve (that superstep is then completed through the
+        ordinary host path, so every escape stays on the K=1 oracle
+        trajectory).  Falls back to a single phase-by-phase superstep
+        when K <= 1 or the pool is not fused-capable.  Returns the number
+        of complete supersteps executed (0 when no slot is occupied)."""
+        K = self.supersteps_per_dispatch
+        if max_supersteps is not None:
+            K = min(K, max(1, int(max_supersteps)))
+        if K <= 1 or not self.fused_capable():
+            return 1 if self.superstep() else 0
+        self.stats.ticks += 1
+        tok = self.trace.begin("fused-dispatch", cat="phase",
+                               tid=self._track, tick=self._now(), k=K)
+        self._admit()
+        self._m_queue.set(len(self.queue))
+        active = self._active()
+        self._m_active.set(int(active.sum()))
+        if not active.any():
+            self.trace.end(tok)
+            return 0
+        ex, ex_active, rows, act_idx = self._pick_execution(active)
+        return self._fused_dispatch_one(ex, ex_active, rows, act_idx, K,
+                                        on_sub=ex is not self.exec, tok=tok)
+
+    def _fused_dispatch_one(self, ex, ex_active, rows, act_idx, K: int,
+                            on_sub: bool, tok) -> int:
+        """One fused device dispatch on the whole arena (masked) or on a
+        session's sub-arena (`on_sub`), with its escape handled: a commit
+        exit replays _commit_moves exactly like the K=1 path, an
+        expansion escape completes the partial superstep through the
+        ordinary host path.  Returns the superstep count."""
+        t0 = time.perf_counter()
+        budget_left, states, start_size = self._fused_upload(
+            ex, rows, act_idx)
+        pend = ex.run_supersteps_submit(ex_active, self.p, K, self.env,
+                                        self.sim, states, budget_left,
+                                        self.alternating_signs)
+        t1 = time.perf_counter()
+        disp = ex.run_supersteps_collect(pend)
+        t2 = time.perf_counter()
+        self.stats.t_fused_submit += t1 - t0
+        self.stats.t_fused_collect += t2 - t1
+        self.stats.t_fused_device += 1e-3 * (disp.device_ms or 0.0)
+        n = self._fused_finish_one(ex, ex_active, rows, act_idx, disp,
+                                   start_size, on_sub, tok, t0)
+        self.stats.t_fused_finish += time.perf_counter() - t2
+        return n
+
+    def _fused_upload(self, ex, rows, act_idx):
+        """Host half of a fused dispatch's inputs: per-row remaining move
+        budgets and the ST rows each dispatched slot's env twin can read
+        (those below its size: the only ones the device copy needs)."""
+        budget_left = np.zeros(ex.G, np.int32)
+        states = [None] * ex.G
+        start_size = np.ones(ex.G, np.int64)
+        for r, g in zip(rows, act_idx):
+            slot = self.slots[g]
+            budget_left[r] = slot.req.budget - slot.move_supersteps
+            states[r] = self.sts[g].data[: slot.prev_size]
+            start_size[r] = slot.prev_size
+        return budget_left, states, start_size
+
+    def _fused_finish_one(self, ex, ex_active, rows, act_idx, disp,
+                          start_size, on_sub: bool, tok, t0: float) -> int:
+        """Accounting and escape handling for one collected fused
+        dispatch."""
+        A, p = len(act_idx), self.p
+        n = disp.n
+        t1 = time.perf_counter()
+        self.stats.fused_dispatches += 1
+        self.stats.fused_supersteps += n
+        self.stats.fused_replays += disp.replays
+        expand = disp.escape == "expand"
+        if expand:
+            self.stats.fused_escape_expand += 1
+        elif disp.escape == "commit":
+            self.stats.fused_escape_commit += 1
+        else:
+            self.stats.fused_ran_k += 1
+        self.registry.counter(
+            "service_fused_dispatches_total",
+            "fused K-superstep device dispatches by escape reason",
+            bucket=bucket_label(self.cfg), escape=disp.escape).inc()
+        # pull device-resolved expansion states back into the host tables:
+        # node ids are allocated contiguously, so the rows from the size at
+        # dispatch start on are exactly the entries the host is missing (an
+        # expansion escape leaves out the escaped superstep's insert: the
+        # host expansion path writes those)
+        for r, g in zip(rows, act_idx):
+            lo, new_rows = disp.written(r)
+            if lo != start_size[r]:
+                raise AssertionError(f"slot {g}: device size {lo} at "
+                                     f"dispatch start, host {start_size[r]}")
+            if len(new_rows):
+                self.sts[g].write(np.arange(lo, lo + len(new_rows)), new_rows)
+        # the LAST complete superstep of a normal exit goes through
+        # _commit_moves exactly like the K=1 path (so move commits,
+        # evictions and reroots replay bit-identically); an expansion
+        # escape instead hands its partial superstep to the host path below
+        carry = n if expand else n - 1
+        for r, g in zip(rows, act_idx):
+            slot = self.slots[g]
+            slot.move_supersteps += carry
+            slot.res.supersteps += carry
+            slot.prev_size = int(disp.size_pre[r])
+        self.stats.sim_rows += n * A * p
+        self.stats.sim_batches += n
+        self.stats.max_fused_rows = max(self.stats.max_fused_rows, A * p)
+        if n:
+            self._m_sim_rows.observe(A * p)
+        if on_sub:
+            # the n device-complete supersteps ran on the gathered sub-arena
+            # (an escaped superstep counts itself in finish_superstep)
+            self.stats.compacted_supersteps += n
+            self.stats.fused_compacted_supersteps += n
+            if not expand and not self.persistent_compaction:
+                self._close_session()
+        if expand:
+            # complete the escaped superstep on the host: the device already
+            # applied selection (virtual loss, node_O) and insertion, so the
+            # ordinary expand -> evaluate -> finish path picks up exactly
+            # where begin_superstep would have handed off
+            self.stats.supersteps += n
+            self.stats.occupancy_sum += n * A / self.G
+            self._m_supersteps.inc(n)
+            sel = disp.sel_host
+            hx = self.expander.expand(
+                [(g, self.sts[g], {k: v[r] for k, v in sel.items()},
+                  disp.new_nodes[r]) for r, g in zip(rows, act_idx)],
+                tid=self._track)
+            t2 = time.perf_counter()
+            self.stats.t_expand += t2 - t1
+            sim_states = np.concatenate([hx[g].sim_states for g in act_idx])
+            pend = _PendingStep(
+                ex=ex, ex_active=ex_active, rows=rows, act_idx=act_idx,
+                sel_dev=disp.sel_dev, hx=hx, sim_states=sim_states,
+                t_intree=t1 - t0, t_host=t2 - t1, tok=tok)
+            t3 = time.perf_counter()
+            values, priors = self._sim_evaluate(sim_states)
+            self.finish_superstep(pend, values, priors,
+                                  t_sim=time.perf_counter() - t3)
+            return n + 1
+        self.stats.supersteps += n
+        self.stats.occupancy_sum += n * A / self.G
+        self.stats.t_intree += t1 - t0
+        self._m_supersteps.inc(n)
+        self._commit_moves(act_idx)
+        if tok is not None:
+            self.trace.end(tok)
+        return n
+
     # ---- move boundary: commit / advance / evict ----
     def _commit_moves(self, act_idx):
         sizes = self._sizes()
@@ -849,7 +1035,10 @@ class ArenaPool:
     def run(self, max_supersteps: int = 100_000) -> list[SearchResult]:
         while (self.queue or self._active().any()) \
                 and self.stats.supersteps < max_supersteps:
-            if not self.superstep():
+            if self.supersteps_per_dispatch > 1:
+                if self.fused_dispatch() == 0:
+                    break
+            elif not self.superstep():
                 break
         return self.completed
 

@@ -1,8 +1,8 @@
 """SchedulerCore — global cross-pool scheduling behind the SearchClient.
 
-The port of repro.service.scheduler_core (lock-step pools; the fused
-K-superstep dispatch and multi-device shards are ROADMAP.md queue A
-items 3 and 6, refused at construction).
+The port of repro.service.scheduler_core (lock-step pools, with the fused
+K-superstep dispatch; multi-device shards and the overlap mode are
+ROADMAP.md queue A item 6, refused at construction).
 
 Mirsoleimani et al.'s *Structured Parallel Programming for MCTS* argues
 the scheduler, not the tree ops, should own parallel structure; the
@@ -289,7 +289,7 @@ class SchedulerCore:
         overlap: bool = False,
         device=None,
     ):
-        check_unported(supersteps_per_dispatch, n_shards, overlap)
+        check_unported(n_shards, overlap)
         self.env, self.sim = env, sim
         self.G, self.p = G, p
         self.executor = executor
@@ -322,7 +322,12 @@ class SchedulerCore:
         self.fuse = self.policy.gang if fuse_across_pools is None \
             else fuse_across_pools
         self.retire_after_ticks = retire_after_ticks
+        # fused K-superstep device dispatch (core.fused): K > 1 moves
+        # every fused-capable pool onto it; the clock then advances by
+        # the supersteps each tick ran (see tick)
+        self.supersteps_per_dispatch = max(1, int(supersteps_per_dispatch))
         self._pool_kw = dict(
+            supersteps_per_dispatch=self.supersteps_per_dispatch,
             alternating_signs=alternating_signs,
             reuse_subtree=reuse_subtree,
             compact_threshold=compact_threshold,
@@ -418,6 +423,16 @@ class SchedulerCore:
         for _, uid, key in due:
             self.cancel(uid, key, reason="deadline")
 
+    def _fused_cap(self) -> Optional[int]:
+        """Superstep cap for fused dispatches this tick: never run past
+        the most urgent outstanding deadline, so deadline eviction keeps
+        its per-tick granularity (the clock advances by the largest
+        fused run, and the cap guarantees that advance stops at the
+        nearest deadline).  None = no deadline pending, run the full K."""
+        if not self._deadlines:
+            return None
+        return max(1, min(t for t, _, _ in self._deadlines) - self.ticks)
+
     # ---- the global tick ----
     def tick(self) -> bool:
         """One scheduler tick: expire deadlines, apply the policy's
@@ -434,15 +449,26 @@ class SchedulerCore:
             pool.admit_limit = limits.get(key)
             pool.deadline_first = self.policy.deadline_first
         pending = []
+        fused_ns = []            # supersteps each fused pool ran this tick
         advanced_ids: set = set()
+        cap = self._fused_cap()
         for key in self.policy.order(self):
             pool = self.pools[key]
             if pool.retired or not pool.has_work():
                 continue
-            pend = pool.begin_superstep()
-            if pend is None:
-                continue
-            pending.append((pool, pend))
+            if self.supersteps_per_dispatch > 1 and pool.fused_capable():
+                # fused K-superstep device dispatch: admission, simulation
+                # and move commits all happen inside; the deadline cap
+                # keeps eviction granularity intact
+                n = pool.fused_dispatch(max_supersteps=cap)
+                if n == 0:
+                    continue
+                fused_ns.append(n)
+            else:
+                pend = pool.begin_superstep()
+                if pend is None:
+                    continue
+                pending.append((pool, pend))
             advanced_ids.add(id(pool))
             self.last_key = key
             self.policy.advanced(self, key)
@@ -450,10 +476,15 @@ class SchedulerCore:
                 break
         if pending:
             self._evaluate_and_finish(pending)
+        if fused_ns:
+            # the global clock counts supersteps of service time: a tick
+            # whose deepest fused dispatch ran n supersteps advances the
+            # clock by n (the +1 at tick entry already paid the first)
+            self.ticks += max(fused_ns) - 1
         self._sweep_retirement(advanced=advanced_ids)
         if tok is not None:
             self.trace.end(tok)
-        return bool(pending)
+        return bool(pending) or bool(fused_ns)
 
     def _evaluate_and_finish(self, pending):
         """ONE SimulationBackend.evaluate spanning every advancing pool

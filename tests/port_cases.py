@@ -10,7 +10,12 @@ repro_torch (no copy of it exists).  The rewrite:
     for JaxArenaExecutor, CudaArenaExecutor for PallasArenaExecutor, the
     executor name "cuda" for "pallas");
   * every call of a serving entry point gets ``device="cpu"``, since the
-    port's entry points run on CUDA unless the caller asks for the CPU.
+    port's entry points run on CUDA unless the caller asks for the CPU;
+  * in a module listed in ``SHIMS`` (the device-twin tests of
+    tests/test_fused_dispatch.py), ``jax`` and ``jnp`` are rebound after
+    the module runs: ``jax.jit(f)`` calls f on torch tensors made from
+    its numpy arguments, and ``jnp.asarray`` / ``jnp.zeros`` make CPU
+    tensors, so a body that jits a device twin runs the port's twin.
 
 ``cases(module, exclude)`` expands each remaining test function's
 ``pytest.mark.parametrize`` marks into (id, function, kwargs) cases for
@@ -25,10 +30,16 @@ import itertools
 import types
 from pathlib import Path
 
+import numpy as np
+import torch
+
 TESTS = Path(__file__).resolve().parent
 
 NAME_MAP = {"JaxArenaExecutor": "TorchArenaExecutor",
-            "PallasArenaExecutor": "CudaArenaExecutor"}
+            "PallasArenaExecutor": "CudaArenaExecutor",
+            # the JAX fused program (a jitted function; only its lowering
+            # tests use it, and those do not apply to the port)
+            "_fused_program": "FusedProgram"}
 VALUE_MAP = {"pallas": "cuda"}
 DEVICE_CALLS = {"SearchClient", "SearchService", "ServiceFrontend",
                 "ArenaPool", "TreeParallelMCTS", "make_arena_executor",
@@ -81,6 +92,21 @@ class _ToPort(ast.NodeTransformer):
         return node
 
 
+def _jit(fn):
+    def run(*args):
+        return fn(*[torch.as_tensor(np.asarray(a))
+                    if isinstance(a, (np.ndarray, np.generic)) else a
+                    for a in args])
+    return run
+
+
+JAX_SHIM = types.SimpleNamespace(jit=_jit)
+JNP_SHIM = types.SimpleNamespace(
+    asarray=lambda x: torch.as_tensor(np.asarray(x)),
+    zeros=lambda shape, dtype=torch.float32: torch.zeros(shape, dtype=dtype),
+    int32=torch.int32)
+SHIMS = {"test_fused_dispatch": {"jax": JAX_SHIM, "jnp": JNP_SHIM}}
+
 _MODULES: dict = {}
 
 
@@ -93,6 +119,7 @@ def port_module(name: str) -> types.ModuleType:
         mod = types.ModuleType(f"{name}_on_port")
         mod.__file__ = str(path)
         exec(compile(tree, str(path), "exec"), mod.__dict__)
+        mod.__dict__.update(SHIMS.get(name, {}))
         _MODULES[name] = mod
     return _MODULES[name]
 

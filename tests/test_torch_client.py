@@ -78,14 +78,10 @@ UNPORTED = {
     "test_shard_failover_disable_and_reenable": "shards: item 6",
     "test_shard_count_must_divide_g": "shards: item 6",
     "test_resurrected_pool_keeps_shard_partition": "shards: item 6",
-    "test_run_max_ticks_bounds_clock_not_calls": "fused dispatch: item 3",
-    "test_result_max_ticks_bounds_clock_under_fused_dispatch":
-        "fused dispatch: item 3",
     "test_run_max_ticks_drains_inflight_gang_within_budget": "overlap: item 6",
     "test_result_max_ticks_drains_inflight_gang": "overlap: item 6",
     "test_run_until_budget_exit_drains_inflight_gang": "overlap: item 6",
-    "test_run_max_ticks_bounds_clock_under_fused_overlap":
-        "overlap, fused dispatch: items 3, 6",
+    "test_run_max_ticks_bounds_clock_under_fused_overlap": "overlap: item 6",
     "test_overlap_results_match_lockstep_through_client": "overlap: item 6",
     "test_overlap_rejects_compaction": "overlap: item 6",
 }

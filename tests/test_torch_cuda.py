@@ -11,8 +11,11 @@ then copied to the card twice: one copy goes through the kernels, the
 other through the plain versions, and every array must be identical;
 the Selection kernel also on its hazard cases (tests/tree_cases.py).
 The serving path (repro_torch.service.SearchClient, executor="cuda") is
-held to the numpy oracle on a short G=16 stream with sessions open; Node
-Insertion must not synchronise, and a retired pool must free its arena.
+held to the numpy oracle on a short G=16 stream with sessions open, also
+with the fused K-superstep dispatch; Node Insertion and a fused submit
+must not synchronise, the fused dispatch's CUDA graph must equal the
+eager superstep body on every escape, and a retired pool or a released
+executor must free its arena (and its graph).
 The flash-attention kernel is held to its plain version at the JAX flash
 test's tolerances (f32 2e-5, bf16 2e-2); in bf16 also to the plain version
 run in f32 on the same inputs, within one bf16 rounding of the output,
@@ -27,6 +30,7 @@ import torch
 from repro_torch.core import fixedpoint as fx
 from repro_torch.core import intree
 from repro_torch.core.tree import NULL, TreeConfig, from_numpy, init_arena, to_numpy
+from repro_torch.envs import BanditTreeEnv, BanditValueBackend
 from repro_torch.kernels import uct_backup, uct_select
 from repro_torch.kernels import flash_attention as FA
 import tree_cases
@@ -232,11 +236,14 @@ def test_flash_kernel_refuses_misaligned_bf16_stride():
 
 # -- the serving path (repro_torch.service) on the card -------------------
 
-def serving_stream(executor, G=16, p=4):
+def serving_stream(executor, G=16, p=4, K=1):
     """A short seeded stream through SearchClient on the card: 24
     requests over two shape classes (weighted-queue-depth: cross-pool
     fused Simulation), compaction sessions below half occupancy, one
-    cancel, one deadline eviction.  Returns ({uid: SearchResult},
+    cancel, one deadline eviction.  With the fused dispatch (K > 1) a
+    tick runs up to K supersteps, so request 5 is cancelled after its
+    first move instead of after two ticks (a point that is the same
+    under any grouping of supersteps).  Returns ({uid: SearchResult},
     client stats, xpool batches)."""
     from repro_torch.envs import BanditTreeEnv, BanditValueBackend
     from repro_torch.service import SearchClient, SearchRequest
@@ -246,15 +253,22 @@ def serving_stream(executor, G=16, p=4):
     cl = SearchClient(BanditTreeEnv(fanout=4, terminal_depth=10),
                       BanditValueBackend(), G=G, p=p, executor=executor,
                       policy="weighted-queue-depth", compact_threshold=0.5,
-                      expansion="vector", device="cuda")
+                      expansion="vector", supersteps_per_dispatch=K,
+                      device="cuda")
     try:
-        hs = [cl.submit(SearchRequest(
+        reqs = [SearchRequest(
             uid=i, seed=int(rng.randint(1000)), budget=int(rng.randint(3, 9)),
             moves=int(rng.randint(1, 3)), keep_tree=i % 3 == 0,
-            cfg=cfgs[i % 2])) for i in range(24)]
+            cfg=cfgs[i % 2]) for i in range(24)]
+        if K > 1:
+            reqs[5].moves = 2
+        hs = [cl.submit(r) for r in reqs]
         hs.append(cl.submit(SearchRequest(uid=24, seed=5, budget=50,
                                           cfg=cfgs[0]), deadline_supersteps=4))
-        cl.poll(2)
+        if K > 1:
+            assert cl.run_until(lambda c: len(c.core.move_log.get(5, [])) >= 1)
+        else:
+            cl.poll(2)
         assert hs[5].cancel()
         done = {h.uid: h.result() for h in hs}
         return done, cl.stats, cl.core.xpool_batches
@@ -332,3 +346,190 @@ def test_retire_frees_the_cuda_arena():
     after = torch.cuda.memory_allocated()
     assert before - after >= arena
     pool.close()
+
+
+# -- the fused K-superstep dispatch (repro_torch.core.fused) on the card --
+
+class _PartialEnv(BanditTreeEnv):
+    """BanditTreeEnv whose device twin refuses transitions from depth >= 2
+    leaves (the expand escape; tests/test_executor_matrix.py)."""
+
+    def resolvable_device(self, states, actions):
+        return states[..., 0] < 2
+
+
+FUSED_CASES = {   # name: (tree config, budgets, partial env, escape)
+    "ran_k": (TreeConfig(X=512, F=4, D=6), [100] * 4, False, "ran_k"),
+    "budget-commit": (TreeConfig(X=512, F=4, D=6), [100, 3, 100, 7], False,
+                      "commit"),
+    "arena-full": (TreeConfig(X=40, F=4, D=6), [100] * 4, False, "commit"),
+    "expand": (TreeConfig(X=512, F=4, D=6), [100] * 4, True, "expand"),
+}
+FUSED_ACTIVE = np.array([True, True, False, True])
+
+
+def fused_start(cfg, partial):
+    """4 slots grown 3 supersteps on the CPU (plain fused body), their ST
+    image, env and sim."""
+    from repro_torch.core import fused
+
+    env = (_PartialEnv if partial else BanditTreeEnv)(fanout=4, terminal_depth=10)
+    sim = BanditValueBackend()
+    arena = init_arena(cfg, 4, root_num_actions=4, device="cpu")
+    states = np.zeros((4, cfg.X, 8), np.float32)
+    for r in range(4):
+        states[r, 0] = env.initial_state(r)
+    _, d = fused.run_supersteps(cfg, "faithful", arena, np.ones(4, bool), 4,
+                                1, env, sim, states, np.full(4, 100, np.int32),
+                                False)
+    for r in range(4):
+        lo, rows = d.written(r)
+        states[r, lo: lo + len(rows)] = rows
+    return to_numpy(arena), states, env, sim
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(FUSED_CASES))
+def test_fused_graph_matches_eager_body(case):
+    """The cuda executor's fused dispatch (one captured CUDA graph of the
+    superstep body, replayed) equals the plain (faithful) eager body on
+    the card from the same arena, bit for bit, on every escape; each
+    replay launches each tree kernel once."""
+    need_cuda()
+    from repro_torch.core import fused
+    from repro_torch.core.executor import CudaExecutor
+
+    cfg, budgets, partial, escape = FUSED_CASES[case]
+    arrays, states, env, sim = fused_start(cfg, partial)
+    budgets = np.asarray(budgets, np.int32)
+    ex = CudaExecutor(cfg, 4, device="cuda", _trees=from_numpy(arrays, "cuda"))
+    n_sel, n_bak = uct_select.launches, uct_backup.launches
+    got = ex.run_supersteps(FUSED_ACTIVE, 4, 16, env, sim, states, budgets, False)
+    assert ex._fused.graph is not None
+    # the capture's warm-up launched each kernel once, predicated off
+    assert uct_select.launches - n_sel == got.replays + 1
+    assert uct_backup.launches - n_bak == got.replays + 1
+    plain = fused.FusedProgram(cfg, "faithful", from_numpy(arrays, "cuda"), 4,
+                               env, sim, False)
+    want = plain.collect(plain.submit(FUSED_ACTIVE, 16, states, budgets))
+    assert got.escape == want.escape == escape
+    assert got.n == want.n
+    for k in ("size_pre", "sizes", "states_lo"):
+        np.testing.assert_array_equal(getattr(got, k), getattr(want, k))
+    for r in np.flatnonzero(FUSED_ACTIVE):
+        np.testing.assert_array_equal(got.written(r)[1], want.written(r)[1])
+    if escape == "expand":
+        for k in intree.SEL_FIELDS:
+            np.testing.assert_array_equal(got.sel_host[k], want.sel_host[k])
+        np.testing.assert_array_equal(got.new_nodes, want.new_nodes)
+    a, b = to_numpy(ex.trees), to_numpy(plain.trees)
+    for k in TREE_FIELDS:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+@pytest.mark.cuda
+def test_fused_submit_makes_no_host_sync():
+    """With its graph captured, run_supersteps_submit queues the upload,
+    the replays and the read-back without a sync: it runs under CUDA's
+    sync debug mode "error"; collect is the one read."""
+    need_cuda()
+    from repro_torch.core.executor import CudaExecutor
+
+    cfg, budgets, _, _ = FUSED_CASES["ran_k"]
+    arrays, states, env, sim = fused_start(cfg, False)
+    ex = CudaExecutor(cfg, 4, device="cuda", _trees=from_numpy(arrays, "cuda"))
+    args = (FUSED_ACTIVE, 4, 4, env, sim, states, np.asarray(budgets, np.int32),
+            False)
+    first = ex.run_supersteps(*args)            # captures the graph
+    states2 = states.copy()
+    for r in np.flatnonzero(FUSED_ACTIVE):
+        lo, rows = first.written(r)
+        states2[r, lo: lo + len(rows)] = rows
+    args = args[:5] + (states2,) + args[6:]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pend = ex.run_supersteps_submit(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    d = ex.run_supersteps_collect(pend)
+    assert d.n == 4 and d.escape == "ran_k"
+
+
+@pytest.mark.cuda
+def test_released_executor_drops_its_graph():
+    """release() drops the cached FusedProgram with its CUDA graph, its
+    ST buffer and the arena: the allocator gets all of it back."""
+    need_cuda()
+    import gc
+    import weakref
+
+    from repro_torch.core.executor import CudaExecutor
+
+    cfg, budgets, _, _ = FUSED_CASES["ran_k"]
+    arrays, states, env, sim = fused_start(cfg, False)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    ex = CudaExecutor(cfg, 4, device="cuda", _trees=from_numpy(arrays, "cuda"))
+    ex.run_supersteps(FUSED_ACTIVE, 4, 4, env, sim, states,
+                      np.asarray(budgets, np.int32), False)
+    prog = weakref.ref(ex._fused)
+    graph = weakref.ref(ex._fused.graph)
+    held = torch.cuda.memory_allocated() - base
+    arena = sum(t.numel() * t.element_size() for t in vars(ex.trees).values())
+    st = ex._fused.states.numel() * ex._fused.states.element_size()
+    assert held >= arena + st
+    ex.release()
+    gc.collect()
+    torch.cuda.synchronize()
+    assert prog() is None and graph() is None
+    assert torch.cuda.memory_allocated() - base < 4096
+
+
+@pytest.mark.cuda
+def test_fused_serving_stream_matches_reference():
+    """SearchClient(supersteps_per_dispatch=4) on the card: the short
+    stream's results equal the numpy oracle's, through fused dispatches
+    that commit-escaped, some on session sub-arenas."""
+    need_cuda()
+    from repro_torch.core import fused
+
+    n_cap = fused.captures
+    got, stats, _ = serving_stream("cuda", K=4)
+    want, _, _ = serving_stream("reference", K=4)
+    assert stats.fused_dispatches > 0 and stats.fused_escape_commit > 0
+    assert stats.fused_compacted_supersteps > 0
+    assert fused.captures > n_cap
+    for uid, b in want.items():
+        a = got[uid]
+        assert (a.actions, a.rewards, a.supersteps, a.cancelled,
+                a.deadline_evicted) == (b.actions, b.rewards, b.supersteps,
+                                        b.cancelled, b.deadline_evicted), uid
+        for k in (b.tree_snapshot or {}):
+            np.testing.assert_array_equal(a.tree_snapshot[k],
+                                          b.tree_snapshot[k], err_msg=k)
+
+
+@pytest.mark.cuda
+def test_select_kernel_captures_past_48k_shared_memory():
+    """uct_select.cu raises its dynamic shared-memory attribute per call
+    above 48 KB (p > 2457).  That call is legal while a CUDA graph is
+    being captured: a captured launch at p=2600 equals the eager one."""
+    need_cuda()
+    cfg = SWEEP[1]
+    arrays = grown_arena(cfg, 1, 4, np.random.RandomState(0))
+    p = 2600
+    act = torch.ones(1, dtype=torch.int32, device="cuda")
+    a, b = from_numpy(arrays, "cuda"), from_numpy(arrays, "cuda")
+    want = uct_select.select_arena(cfg, a, act, p)
+    n = uct_select.launches
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        got = uct_select.select_arena(cfg, b, act, p)
+    uct_select.launches = n
+    g.replay()
+    torch.cuda.synchronize()
+    for k in intree.SEL_FIELDS:
+        assert torch.equal(getattr(got, k), getattr(want, k)), k
+    for k in ("edge_VL", "node_O"):
+        assert torch.equal(getattr(a, k), getattr(b, k)), k

@@ -14,7 +14,8 @@
     "pallas" executor is the port's "cuda"), their own bodies run on the
     port (tests/port_cases.py), each one a case of one parametrised test;
   * the serving modes the port does not have yet raise
-    NotImplementedError naming their ROADMAP.md queue A item.
+    NotImplementedError naming their ROADMAP.md queue A item, and the
+    fused K-superstep dispatch runs through every entry point.
 
 The JAX runs are cached per module, as test_executor_matrix.py's
 _RESULTS does.  Everything runs on the CPU.
@@ -122,7 +123,7 @@ def test_relaxed_and_wavefront_streams_match_jax(executor, compact):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(supersteps_per_dispatch=4), "item 3"),
+    (dict(supersteps_per_dispatch=4), None),
     (dict(n_shards=2), "item 6"),
     (dict(overlap=True), "item 6"),
 ], ids=["fused-dispatch", "shards", "overlap"])
@@ -130,7 +131,9 @@ def test_relaxed_and_wavefront_streams_match_jax(executor, compact):
                                    "SearchService", "ArenaPool"])
 def test_unported_modes_raise(kw, item, entry):
     """No unported mode quietly runs lock-step: each raises naming the
-    ROADMAP.md queue A item that brings it."""
+    ROADMAP.md queue A item that brings it.  The fused dispatch (item 3)
+    is ported: each entry point runs K=4 to completion through it, with
+    the K=1 oracle's results."""
     env, sim = BanditTreeEnv(fanout=4, terminal_depth=10), BanditValueBackend()
     cfg = TreeConfig(**MATRIX)
     make = {
@@ -144,8 +147,34 @@ def test_unported_modes_raise(kw, item, entry):
         "ArenaPool": lambda: ArenaPool(cfg, env, sim, G=4, p=P,
                                        device="cpu", **kw),
     }[entry]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue A {item}"):
-        make()
+    if item is not None:
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP.md queue A {item}"):
+            make()
+        return
+    got = run_entry(make(), entry)
+    want = run_entry(ArenaPool(cfg, env, sim, G=4, p=P, executor="reference",
+                               device="cpu"), "ArenaPool")
+    assert_results_identical(got[0], want[0], entry)
+    assert got[1].fused_dispatches > 0 and got[1].fused_escape_commit > 0
+
+
+def run_entry(svc, entry: str):
+    """Three requests (budgets 3-7, 1-2 moves, trees kept) through one
+    entry point, run to completion.  Returns ({uid: SearchResult},
+    stats)."""
+    reqs = [SearchRequest(uid=i, seed=20 + i, budget=3 + 2 * i,
+                          moves=1 + i % 2, keep_tree=True,
+                          cfg=TreeConfig(**MATRIX)) for i in range(3)]
+    try:
+        if entry == "SearchClient":
+            hs = [svc.submit(r) for r in reqs]
+            return {h.uid: h.result() for h in hs}, svc.stats
+        for r in reqs:
+            svc.submit(r)
+        return {r.uid: r for r in svc.run()}, svc.stats
+    finally:
+        svc.close()
 
 
 def test_entry_points_need_a_device():
@@ -193,20 +222,17 @@ UNPORTED = {
         "GomokuEnv and the policy-net backend: ROADMAP.md queue A item 7",
     "test_expand_all_vector_matches_loop":
         "GomokuEnv and the policy-net backend: item 7",
-    "test_fused_dispatch_matches_oracle": "fused dispatch: item 3",
-    "test_fused_dispatch_expansion_escape_matches_oracle":
-        "fused dispatch: item 3",
     "test_sharded_serving_bit_identical": "shards: item 6",
     "test_sharded_compaction_bit_identical": "shards: item 6",
-    "test_sharded_fused_dispatch_bit_identical": "shards: items 3, 6",
+    "test_sharded_fused_dispatch_bit_identical": "shards: item 6",
     "test_overlap_bit_identical_to_lockstep": "overlap: item 6",
     "test_overlap_gang_count_is_semantics_free": "overlap: item 6",
     "test_overlap_off_is_bit_identical_on_every_executor":
         "the overlap refactor's n_gangs argument: item 6",
     "test_overlap_deterministic_replay": "overlap: item 6",
     "test_overlap_sharded_bit_identical": "overlap, shards: item 6",
-    "test_overlap_fused_dispatch_bit_identical": "overlap: items 3, 6",
-    "test_overlap_fused_sharded_composes": "overlap: items 3, 6",
+    "test_overlap_fused_dispatch_bit_identical": "overlap: item 6",
+    "test_overlap_fused_sharded_composes": "overlap, shards: item 6",
     "test_overlap_trace_exposes_gang_tracks": "overlap: item 6",
     "test_nn_backend_cache_is_semantics_free":
         "SimServer, the cache and the NN backend: item 7",
