@@ -101,7 +101,24 @@ Phases (each raises on any failure, so the exit code is not 0):
      searches/s, ms per dispatch by part, and the device's busy share
      over a profiled window of 40 ticks; then ten alternating pairs of
      the stream at K=1 and K=8, each held to the oracle, for the ratio
-     of their speeds.
+     of their speeds;
+ 11. pipelined gangs and sharded pools on phase 9's stream: (a) the
+     overlap mode (two gangs, pool expansion with two env worker
+     processes, no compaction) at K = 1 and 8, every SearchResult equal
+     to a numpy-oracle client's with the same overlap settings and every
+     request no cancel or deadline touched equal to phase 9's oracle
+     result; a gang staged while another was in flight (K=1) and two
+     gangs' fused programs with dispatches in flight at once (K=8);
+     every staged gang and every fused gang submit under CUDA's sync
+     debug mode "error"; (b) n_shards=2 (both on the one card) at K=1
+     with phase 9's compaction and at K=8, equal to phase 9's oracle
+     results, each tree kernel launched once per shard with an active
+     slot per phase-path tick plus the fused replays and captures;
+     (c) three alternating pairs of the stream, overlap against
+     lock-step at K=1 (both with pool expansion), each held to its
+     oracle, for the ratio of their speeds, searches/s, the
+     service_overlap_busy_ratio gauges and the graph captures; (d) no
+     env worker process initialised CUDA.
 
 It prints JSON lines; the line before the last is {"kernels": [...]} and
 the last is {"ok": true, "device": {...}}.  It imports nothing of the JAX
@@ -1128,16 +1145,18 @@ def serving_classes():
 
 
 def serving_client(executor: str, device=None, env=None, **kw):
+    """Phase 9's SearchClient; keyword arguments add to or override its
+    settings."""
     from repro_torch.envs import BanditTreeEnv, BanditValueBackend
     from repro_torch.service import SearchClient
 
+    opts = dict(policy="weighted-queue-depth", compact_threshold=0.5,
+                retire_after_ticks=SERVE_RETIRE_TICKS, expansion="vector")
+    opts.update(kw)
     return SearchClient(env or BanditTreeEnv(fanout=6, terminal_depth=12),
                         BanditValueBackend(), G=SERVE_G, p=SERVE_P,
-                        executor=executor, policy="weighted-queue-depth",
-                        compact_threshold=0.5,
-                        retire_after_ticks=SERVE_RETIRE_TICKS,
-                        expansion="vector",
-                        device=DEV if device is None else device, **kw)
+                        executor=executor,
+                        device=DEV if device is None else device, **opts)
 
 
 def drive_stream(cl, stream) -> dict:
@@ -1808,6 +1827,252 @@ def phase_fused(want) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 11: pipelined gangs (overlap) and sharded pools at the Pong width
+# ---------------------------------------------------------------------------
+
+# the overlap mode's client: two gangs, pool expansion (two env worker
+# processes), no compaction (overlap refuses it)
+OVERLAP = dict(overlap=True, n_gangs=2, compact_threshold=0.0,
+               expansion="pool", pool_workers=2)
+OVERLAP_KS = (1, 8)
+SHARDS = 2
+OVERLAP_PAIRS = 3   # alternating overlap / lock-step stream pairs
+
+
+class PipelineProbe:
+    """For one run (undone by close()): wraps ArenaPool._stage and
+    ArenaPool._fused_submit_gang to run under CUDA's sync debug mode
+    "error" and to count the stages made while another gang was in
+    flight and the most fused programs in flight at once; wraps
+    ShardedExecutor.selection to count the shards with an active slot
+    (the tree-kernel launches a sharded phase calls for)."""
+
+    def __init__(self):
+        from repro_torch.core.sharded import ShardedExecutor
+        from repro_torch.service.pool import ArenaPool
+
+        self.stages = self.coexist = self.submits = 0
+        self.programs_in_flight = 0
+        self.shard_launches = 0
+        stage, submit = ArenaPool._stage, ArenaPool._fused_submit_gang
+        selection = ShardedExecutor.selection
+        self._saved = [(ArenaPool, "_stage", stage),
+                       (ArenaPool, "_fused_submit_gang", submit),
+                       (ShardedExecutor, "selection", selection)]
+        probe = self
+
+        def staged(pool, gang, active):
+            probe.stages += 1
+            probe.coexist += pool._inflight is not None
+            with sync_errors():
+                return stage(pool, gang, active)
+
+        def submitted(pool, gang, active, K):
+            with sync_errors():
+                out = submit(pool, gang, active, K)
+            probe.submits += 1
+            children = [c for c, _, _ in getattr(pool.exec, "shards",
+                                                 [(pool.exec, 0, 0)])]
+            probe.programs_in_flight = max(probe.programs_in_flight, sum(
+                prog._in_flight for c in children for prog in c._fused.values()))
+            return out
+
+        def selected(ex, active, p):
+            act = np.asarray(active, bool)
+            probe.shard_launches += max(1, sum(
+                bool(act[lo:lo + n].any()) for _, lo, n in ex.shards))
+            return selection(ex, active, p)
+
+        ArenaPool._stage = staged
+        ArenaPool._fused_submit_gang = submitted
+        ShardedExecutor.selection = selected
+
+    def close(self):
+        for cls, name, fn in self._saved:
+            setattr(cls, name, fn)
+
+
+class sync_errors:
+    """CUDA's sync debug mode "error" for the block: any host sync
+    inside it raises."""
+
+    def __enter__(self):
+        torch.cuda.set_sync_debug_mode("error")
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def probed_run(stream, executor="cuda", **kw) -> dict:
+    """Phase 9's stream through serving_client(executor, **kw) under a
+    PipelineProbe, with the kernels' launches, fused captures and replays
+    counted from zero.  Returns the results, the wall, the counts and
+    the client's stats, gauges and env workers' CUDA state."""
+    from repro_torch.core import fused
+    from repro_torch.kernels import uct_backup, uct_select
+
+    uct_select.launches = uct_backup.launches = 0
+    fused.captures, fused.capture_s = 0, 0.0
+    probe = PipelineProbe()
+    cl = serving_client(executor, metrics=True, **kw)
+    try:
+        t0 = time.perf_counter()
+        got = drive_stream(cl, stream)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        venv = cl.core.expander._venv
+        workers = (venv.probe_workers()
+                   if hasattr(venv, "probe_workers") else {})
+        gauges = cl.registry.snapshot().get("service_overlap_busy_ratio", {})
+        stats, ticks = cl.stats, cl.core.ticks
+    finally:
+        probe.close()
+        cl.close()
+    return {"got": got, "wall": wall, "stats": stats, "ticks": ticks,
+            "launches": {"uct_select": uct_select.launches,
+                         "uct_backup": uct_backup.launches},
+            "captures": fused.captures, "capture_ms": 1e3 * fused.capture_s,
+            "probe": probe, "workers": workers, "gauges": gauges}
+
+
+def untouched(results: dict) -> dict:
+    """The results no cancel and no deadline touched."""
+    return {uid: r for uid, r in results.items()
+            if uid not in (CANCEL_UID, DEADLINE_UID)}
+
+
+def overlap_runs(stream, want) -> dict:
+    """(a) the overlap client (two gangs, pool expansion) at K in
+    OVERLAP_KS, each result equal to the numpy-oracle client's with the
+    same overlap settings and every untouched request equal to phase 9's
+    oracle result; both gangs in flight at once, and at K=8 two fused
+    programs' dispatches in flight at once; (d) no env worker
+    initialised CUDA.  Returns the oracle's results and the launches."""
+    t0 = time.perf_counter()
+    # vector expansion: bit-identical to pool expansion, without the IPC
+    ref = serving_client("reference", **dict(OVERLAP, expansion="vector"))
+    want_ov = drive_stream(ref, stream)
+    ref.close()
+    ref_s = time.perf_counter() - t0
+    results_identical(untouched(want_ov), untouched(want),
+                      "overlap oracle vs the lock-step oracle (untouched)")
+    launches = {}
+    for K in OVERLAP_KS:
+        r = probed_run(stream, supersteps_per_dispatch=K, **OVERLAP)
+        n = results_identical(r["got"], want_ov,
+                              f"overlap K={K} vs the overlap oracle")
+        st, probe = r["stats"], r["probe"]
+        phase_path = st.supersteps - st.fused_supersteps - st.fused_escape_expand
+        checks = {
+            # a phase-path gang staged while another was in flight, or
+            # (K > 1) two gangs' fused dispatches in flight at once
+            "gangs_in_flight_together": (probe.coexist > 0 if K == 1
+                                         else probe.programs_in_flight >= 2),
+            "workers_without_cuda": bool(r["workers"])
+            and not any(r["workers"].values()),
+            "select_launches": r["launches"]["uct_select"]
+            == st.fused_replays + r["captures"] + phase_path,
+            "backup_launches": r["launches"]["uct_backup"]
+            == st.fused_replays + r["captures"] + phase_path
+            + st.fused_escape_expand,
+        }
+        if K > 1:
+            checks["fused_dispatches"] = st.fused_dispatches > 0
+        emit(phase="overlap", K=K, G=SERVE_G, p=SERVE_P, requests=n,
+             identical=True, checks=checks, wall_s=r["wall"],
+             searches_per_s=n / r["wall"], ticks=r["ticks"],
+             pool_supersteps=st.supersteps, stages=probe.stages,
+             stages_with_a_gang_in_flight=probe.coexist,
+             fused_submits=probe.submits,
+             fused_programs_in_flight_max=probe.programs_in_flight,
+             fused_dispatches=st.fused_dispatches,
+             fused_supersteps=st.fused_supersteps, replays=st.fused_replays,
+             captures=r["captures"], capture_ms=r["capture_ms"],
+             launches=r["launches"], busy_ratio=r["gauges"],
+             env_workers_cuda_initialized=r["workers"],
+             reference_s=ref_s)
+        bad = [k for k, ok in checks.items() if not ok]
+        if bad:
+            raise AssertionError(f"overlap checks failed at K={K}: {bad}")
+        launches[K] = r["launches"]
+    return {"want": want_ov, "launches": launches}
+
+
+def shard_runs(stream, want) -> dict:
+    """(b) n_shards=2 (both shards on the one card) with phase 9's
+    settings at K=1 (compaction included) and K=8: every result equal to
+    phase 9's oracle, and the tree kernels' launches equal to the shards
+    with an active slot summed over the phase-path ticks, plus the fused
+    replays and captures."""
+    launches = {}
+    for K in OVERLAP_KS:
+        r = probed_run(stream, supersteps_per_dispatch=K, n_shards=SHARDS)
+        n = results_identical(r["got"], want, f"shards K={K} vs the oracle")
+        st, probe = r["stats"], r["probe"]
+        expect = st.fused_replays + r["captures"] + probe.shard_launches
+        checks = {
+            "select_launches": r["launches"]["uct_select"] == expect,
+            "backup_launches": r["launches"]["uct_backup"]
+            == expect + st.fused_escape_expand,
+            "sessions": K > 1 or st.session_gathers >= 1,
+            "fused_dispatches": K == 1 or st.fused_dispatches > 0,
+        }
+        emit(phase="shards", K=K, n_shards=SHARDS, G=SERVE_G, p=SERVE_P,
+             requests=n, identical=True, checks=checks, wall_s=r["wall"],
+             searches_per_s=n / r["wall"], ticks=r["ticks"],
+             pool_supersteps=st.supersteps,
+             shard_phase_launches=probe.shard_launches,
+             fused_dispatches=st.fused_dispatches, replays=st.fused_replays,
+             captures=r["captures"], capture_ms=r["capture_ms"],
+             session_gathers=st.session_gathers, launches=r["launches"])
+        bad = [k for k, ok in checks.items() if not ok]
+        if bad:
+            raise AssertionError(f"shard checks failed at K={K}: {bad} "
+                                 f"(launches {r['launches']}, expected "
+                                 f"{expect})")
+        launches[K] = r["launches"]
+    return launches
+
+
+def overlap_pairs(stream, want, want_ov) -> dict:
+    """(c) OVERLAP_PAIRS alternating pairs of the stream at K=1 with pool
+    expansion, overlap against lock-step, each held to its oracle: the
+    ratio of their speeds (lock-step wall over overlap wall), searches/s,
+    the busy-ratio gauges and the captures."""
+    lock = dict(compact_threshold=0.0, expansion="pool", pool_workers=2)
+    walls = {"overlap": [], "lockstep": []}
+    gauges = []
+    for i in range(OVERLAP_PAIRS):
+        order = (("overlap", OVERLAP), ("lockstep", lock))
+        for mode, kw in (order if i % 2 == 0 else order[::-1]):
+            r = probed_run(stream, **kw)
+            results_identical(r["got"], want_ov if mode == "overlap" else want,
+                              f"paired {mode} vs its oracle")
+            walls[mode].append(r["wall"])
+            if mode == "overlap":
+                gauges.append(r["gauges"])
+    ratio = [a / b for a, b in zip(walls["lockstep"], walls["overlap"])]
+    n = len(want)
+    return {"pairs": OVERLAP_PAIRS, "wall_s": walls,
+            "searches_per_s": {k: [n / w for w in v] for k, v in walls.items()},
+            "speed_ratio_overlap_over_lockstep": ratio,
+            "median_ratio": float(np.median(ratio)), "min_ratio": min(ratio),
+            "max_ratio": max(ratio), "busy_ratio": gauges}
+
+
+def phase_overlap(want) -> dict:
+    """Phase 11: the overlap mode and sharded pools on phase 9's stream,
+    held to the numpy oracle.  Returns the tree kernels' launches."""
+    t_phase = time.perf_counter()
+    stream = serving_stream()
+    ov = overlap_runs(stream, want)
+    shards = shard_runs(stream, want)
+    emit(phase="overlap_paired", **overlap_pairs(stream, want, ov["want"]))
+    emit(phase="overlap", seconds=time.perf_counter() - t_phase)
+    return {"overlap": ov["launches"], "shards": shards}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1842,10 +2107,14 @@ def main() -> int:
                         launches_serve=serve_launches))
     serving = phase_serving(mc)
     fused_launches = phase_fused(serving["want"])
+    overlap_launches = phase_overlap(serving["want"])
     for row in kernels[:2]:
         row["launches_serving"] = serving["launches"][row["name"]]
         row["launches_fused"] = {f"K{K}": fused_launches[K][row["name"]]
                                  for K in FUSED_KS}
+        for mode, counts in overlap_launches.items():
+            row[f"launches_{mode}"] = {f"K{K}": counts[K][row["name"]]
+                                       for K in OVERLAP_KS}
         row["serving_device_ms"] = {
             f"G{G}": serving[f"G{G}"][row["name"] + "_device_ms"]
             for G in (SERVE_G, SERVE_G // 2)}

@@ -42,9 +42,13 @@ supersteps per call with ``run_supersteps``, or split into the
 non-blocking ``run_supersteps_submit`` and the blocking
 ``run_supersteps_collect``.  Each executor caches one FusedProgram (on
 the cuda executor on a card: one captured CUDA graph of the superstep
-body) for its arena, and drops it when its arena is released or the
-program's key changes.  Sharding of the JAX module is a later slice of
-the port (ROADMAP.md queue A item 6).
+body) per gang for its arena — the overlap serving mode keeps two gangs'
+dispatches in flight on one arena, and a program takes one dispatch at a
+time — and drops them when its arena is released or a program's key
+changes.
+
+Sharding: ``make_intree_executor(..., n_shards=D)`` partitions the G
+slots over D child executors, one per device (core/sharded.py).
 """
 
 from __future__ import annotations
@@ -59,6 +63,7 @@ from repro_torch.core.tree import (
     FIELDS, NULL, TreeConfig, UCTree, arena_set_slot, arena_slot, from_numpy,
     init_arena, init_tree, init_tree_arrays, resolve_device, to_numpy,
 )
+from repro_torch.models.sharding import put_on_device
 from repro_torch.obs.trace import NULL_TRACER
 
 EXECUTOR_NAMES = ("reference", "faithful", "relaxed", "wavefront", "cuda")
@@ -208,8 +213,8 @@ class TorchExecutor:
         self.cfg, self.G, self.variant = cfg, G, variant
         self.device = resolve_device(device)
         self.trees = (init_arena(cfg, G, device=self.device) if _trees is None
-                      else _trees)
-        self._fused = None      # cached core.fused.FusedProgram
+                      else put_on_device(_trees, self.device))
+        self._fused: dict = {}  # gang -> cached core.fused.FusedProgram
 
     def _mask(self, active) -> torch.Tensor:
         return intree.as_mask(active, self.device)
@@ -267,27 +272,30 @@ class TorchExecutor:
             torch.cuda.synchronize(self.device)
 
     def release(self):
-        """Drop the arena's tensors and the fused program cached over them
-        (cold-pool retirement, session close); the executor is unusable
-        afterwards."""
+        """Drop the arena's tensors and the fused programs cached over
+        them (cold-pool retirement, session close); the executor is
+        unusable afterwards."""
         self.trees = None
-        self._fused = None
+        self._fused = {}
 
     # -- fused multi-superstep dispatch (core.fused) -------------------
-    def fused_program(self, p: int, env, sim, alternating: bool):
-        """The FusedProgram for this arena, captured on first use and
-        again whenever its key changes (the old one, and its graph, are
-        dropped first)."""
+    def fused_program(self, p: int, env, sim, alternating: bool,
+                      gang: int = 0):
+        """Gang `gang`'s FusedProgram for this arena, captured on first
+        use and again whenever its key changes (the old one, and its
+        graph, are dropped first).  Each gang has its own program (graph,
+        control, carry and ST buffers, staging), so two gangs' dispatches
+        can be in flight on the arena at once."""
         from repro_torch.core import fused
 
         key = fused.program_key(self.cfg, self.variant, self.trees, p, env,
                                 sim, alternating)
-        if self._fused is None or self._fused.key != key:
-            self._fused = None
-            self._fused = fused.FusedProgram(self.cfg, self.variant,
-                                             self.trees, p, env, sim,
-                                             alternating)
-        return self._fused
+        prog = self._fused.get(gang)
+        if prog is None or prog.key != key:
+            self._fused.pop(gang, None)
+            prog = self._fused[gang] = fused.FusedProgram(
+                self.cfg, self.variant, self.trees, p, env, sim, alternating)
+        return prog
 
     def run_supersteps(self, active, p: int, K: int, env, sim, states,
                        budget_left, alternating: bool):
@@ -297,10 +305,11 @@ class TorchExecutor:
             active, p, K, env, sim, states, budget_left, alternating))
 
     def run_supersteps_submit(self, active, p: int, K: int, env, sim, states,
-                              budget_left, alternating: bool):
-        """Non-blocking half of run_supersteps: queue the dispatch and
-        return its PendingDispatch without a host read."""
-        return self.fused_program(p, env, sim, alternating).submit(
+                              budget_left, alternating: bool, gang: int = 0):
+        """Non-blocking half of run_supersteps: queue the dispatch on
+        gang `gang`'s program and return its PendingDispatch without a
+        host read."""
+        return self.fused_program(p, env, sim, alternating, gang).submit(
             active, K, states, budget_left)
 
     def run_supersteps_collect(self, pend):
@@ -507,13 +516,24 @@ class ReferenceExecutor:
         return ref.best_root_action(self.cfg, tree)
 
 
-def make_intree_executor(cfg: TreeConfig, G: int, name: str,
-                         device=None) -> InTreeExecutor:
+def make_intree_executor(cfg: TreeConfig, G: int, name: str, device=None,
+                         n_shards: int = 1,
+                         devices: Optional[list] = None) -> InTreeExecutor:
     """Executor factory shared by TreeParallelMCTS (G=1) and the service
     pools: ``reference`` (numpy oracle on the host), ``faithful`` /
     ``relaxed`` / ``wavefront`` (plain torch ops) or ``cuda`` (the
     hand-written kernels) on `device` (CUDA unless the caller passes
-    another)."""
+    another).  `n_shards > 1` partitions the G slots across D child
+    executors behind one ShardedExecutor (core/sharded.py): slot g lives
+    on shard g // (G // D), whose arena is on `devices[d]` (by default
+    launch.mesh.serving_devices(D, device)).  Per-slot computation is
+    position- and device-independent, so sharding never changes what a
+    slot computes."""
+    if n_shards > 1:
+        from repro_torch.core.sharded import make_sharded_executor
+        return make_sharded_executor(cfg, G, name, n_shards, devices, device)
+    if devices:
+        device = devices[0]
     if name == "reference":
         return ReferenceExecutor(cfg, G)
     if name == "cuda":

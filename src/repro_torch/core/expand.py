@@ -20,13 +20,25 @@ All modes are bit-identical: the flattening preserves the loop's
 (slot, worker, action) visit order, and step_batch implementations match
 scalar ``step`` element for element.
 
+In pool mode step and successor action counts go to the workers in ONE
+round trip per superstep (PoolVectorEnv.step_and_count_batch), so the
+states are pickled once, not twice.
+
+Asynchronous expansion (the overlap serving mode's host half):
+``expand_submit`` does the flattening and, in pool mode, posts the env
+batch to the worker processes WITHOUT waiting, returning a
+PendingExpansion; ``expand_collect`` blocks on the posted chunks and
+finishes the ST scatter.  ``expand`` is ``collect(submit())``, so the
+split is bit-identical to the blocking call.  Between submit and collect
+the workers step their chunks while the caller's thread runs another
+gang's Simulation / finalize / BackUp (service.pool's gang pipeline).
+Modes without an async env leg (loop, vector, or a pooled batch small
+enough to step inline) compute at submit time, and collect unwraps.
+
 TreeParallelMCTS feeds it one slot, service.pool.ArenaPool every active
 slot of a superstep (and a SchedulerCore shares ONE engine across all its
-pools); each call records an "expand" span and the expansion metrics.
-This module is the port's copy of repro.core.expand (pure numpy; the
-asynchronous expand_submit/expand_collect split of the overlap serving
-mode and PoolVectorEnv's fused step_and_count_batch wait for ROADMAP.md
-queue A item 6).
+pools); each call records its spans and the expansion metrics.  This
+module is the port's copy of repro.core.expand (pure numpy).
 """
 
 from __future__ import annotations
@@ -39,7 +51,9 @@ import numpy as np
 from repro_torch.core import fixedpoint as fx
 from repro_torch.core.state_table import StateTable
 from repro_torch.core.tree import NULL
-from repro_torch.envs.vector import PoolVectorEnv, has_vector_env
+from repro_torch.envs.vector import (
+    PoolVectorEnv, has_async_step, has_fused_step, has_vector_env,
+)
 from repro_torch.obs.metrics import NULL_REGISTRY
 from repro_torch.obs.trace import NULL_TRACER
 
@@ -138,12 +152,29 @@ def host_expand_phase(env, st: StateTable, sel: dict,
     return out
 
 
+@dataclasses.dataclass
+class PendingExpansion:
+    """Handle for an in-flight ``expand_submit``: the flattening already
+    happened (leaf reads, per-slot HostExpansion shells, [B] batch rows)
+    and the env batch is either posted to the pool workers (``token``) or
+    already computed (``eager``, or loop mode's finished ``out``).
+    One-shot: ``expand_collect`` consumes it."""
+
+    per: Any            # [(g, st, sel, new_nodes, hx), ...]; None in loop mode
+    seg: Any            # [(pos, worker, expand_action, k), ...] batch rows
+    out: dict           # {g: HostExpansion} (shells until collect scatters)
+    token: Any = None   # the venv's PendingBatch while the IPC is in flight
+    eager: Any = None   # (nxt, term, na_raw) when computed at submit
+    counted: bool = False  # metrics already recorded
+
+
 class ExpansionEngine:
     """Batched host-expansion across every active slot of a superstep.
 
     ``expand(slots)`` takes ``[(g, st, sel, new_nodes), ...]`` — one entry
     per active slot, with that slot's StateTable, host-side selection dict
     and [p, Fp] inserted-id block — and returns ``{g: HostExpansion}``.
+    ``expand_submit`` / ``expand_collect`` are its two halves.
     """
 
     def __init__(self, env, mode: str = "loop", pool_workers: int = 2,
@@ -177,20 +208,55 @@ class ExpansionEngine:
                              slots=len(slots) if hasattr(slots, "__len__")
                              else -1, mode=self.mode):
             if self.mode == "loop":
-                out = {g: host_expand_phase(self.env, st, sel, nn)
-                       for g, st, sel, nn in slots}
-                rows = sum(len(hx.fin_nodes) for hx in out.values())
-                # loop mode: one scalar env.step per row
-                self._m_calls.inc(rows)
-            else:
-                out = self._expand_batched(list(slots))
-                rows = sum(len(hx.fin_nodes) for hx in out.values())
-                self._m_calls.inc(1 if rows else 0)
-            self._m_rows.inc(rows)
+                return self._loop(slots).out
+            pend = self._submit_batched(list(slots))
+            out = self._collect_batched(pend)
+            self._count(pend)
             return out
 
+    # -- asynchronous split (overlap mode's host half) ------------------
+    def expand_submit(self, slots, tid: int = 0) -> PendingExpansion:
+        """Flatten every slot's pending expansions and, in pool mode, post
+        the env batch to the workers without waiting.  Modes without an
+        async leg compute here; either way the handle goes through
+        expand_collect, and submit + collect is bit-identical to
+        expand()."""
+        with self.trace.span("expand-submit", cat="phase", tid=tid,
+                             slots=len(slots) if hasattr(slots, "__len__")
+                             else -1, mode=self.mode):
+            if self.mode == "loop":
+                return self._loop(slots)
+            return self._submit_batched(list(slots))
+
+    def expand_collect(self, pending: PendingExpansion, tid: int = 0) -> dict:
+        """Redeem an expand_submit handle: block on the posted env batch
+        (if one is in flight) and finish the finalize metadata and the ST
+        scatter."""
+        if pending.per is None:       # loop mode: computed at submit
+            return pending.out
+        with self.trace.span("expand-collect", cat="phase", tid=tid,
+                             mode=self.mode):
+            out = self._collect_batched(pending)
+            self._count(pending)
+            return out
+
+    def _loop(self, slots) -> PendingExpansion:
+        out = {g: host_expand_phase(self.env, st, sel, nn)
+               for g, st, sel, nn in slots}
+        rows = sum(len(hx.fin_nodes) for hx in out.values())
+        self._m_calls.inc(rows)     # loop mode: one scalar env.step per row
+        self._m_rows.inc(rows)
+        return PendingExpansion(per=None, seg=None, out=out, counted=True)
+
+    def _count(self, pending: PendingExpansion) -> None:
+        if not pending.counted:
+            rows = sum(len(hx.fin_nodes) for hx in pending.out.values())
+            self._m_calls.inc(1 if rows else 0)
+            self._m_rows.inc(rows)
+            pending.counted = True
+
     # -- one flattened batch over all slots' pending expansions ---------
-    def _expand_batched(self, slots) -> dict:
+    def _submit_batched(self, slots) -> PendingExpansion:
         per, seg = [], []
         flat_states, flat_actions = [], []
         for pos, (g, st, sel, new_nodes) in enumerate(slots):
@@ -213,13 +279,36 @@ class ExpansionEngine:
                     flat_states.append(leaf_states[j])
                     flat_actions.append(ea)
                     seg.append((pos, j, ea, 1))
-        out = {g: hx for (g, _, _, _, hx) in per}
+        pend = PendingExpansion(per=per, seg=seg,
+                                out={g: hx for (g, _, _, _, hx) in per})
         if not seg:  # saturated/terminal superstep: nothing to expand
+            return pend
+        states = np.stack(flat_states)
+        actions = np.asarray(flat_actions, np.int64)
+        if has_async_step(self._venv):
+            # post once, wait at collect: the workers step their chunks
+            # while the caller's thread runs another gang's superstep
+            pend.token = self._venv.submit_batch(states, actions)
+        elif has_fused_step(self._venv):
+            nxt, _, term, na_raw = self._venv.step_and_count_batch(
+                states, actions)
+            pend.eager = (nxt, term, na_raw)
+        else:
+            nxt, _, term = self._venv.step_batch(states, actions)
+            pend.eager = (nxt, term, self._venv.num_actions_batch(nxt))
+        return pend
+
+    def _collect_batched(self, pending: PendingExpansion) -> dict:
+        per, seg, out = pending.per, pending.seg, pending.out
+        if not seg:
             return out
-        nxt, _, term = self._venv.step_batch(
-            np.stack(flat_states), np.asarray(flat_actions, np.int64))
+        if pending.token is not None:
+            nxt, _, term, na_raw = self._venv.collect(pending.token)
+            pending.token = None
+        else:
+            nxt, term, na_raw = pending.eager
         term = np.asarray(term, bool)
-        na = np.where(term, 0, np.asarray(self._venv.num_actions_batch(nxt)))
+        na = np.where(term, 0, np.asarray(na_raw))
 
         # scatter per (slot, worker) segment; ONE duplicate-checked ST
         # write per slot (every id freshly allocated -> distinct)

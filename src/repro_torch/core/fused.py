@@ -42,14 +42,15 @@ write are masked off, and its SelectionResult and new node ids go to
 carry buffers.
 
 One CUDA graph per body: on the ``cuda`` executor on a card the body is
-captured once (``FusedProgram``, cached by the executor per cfg, variant,
-p, Ge, env, sim, alternating and the arena's storage addresses) and a
-dispatch replays it; nothing in the body reads the device from the host,
-so ``submit_supersteps`` issues no sync and ``collect_supersteps`` is the
-one read.  Everywhere else (the CPU, and the plain faithful / relaxed /
-wavefront executors, whose ops may sync) the same body runs eagerly: it
-is the plain version the graph is held to.  A capture that fails raises;
-the cuda executor never runs the eager body in the graph's place.
+captured once (``FusedProgram``, cached by the executor per gang and per
+cfg, variant, p, Ge, env, sim, alternating and the arena's storage
+addresses) and a dispatch replays it; nothing in the body reads the
+device from the host, so ``submit_supersteps`` issues no sync and
+``collect_supersteps`` is the one read.  Everywhere else (the CPU, and
+the plain faithful / relaxed / wavefront executors, whose ops may sync)
+the same body runs eagerly: it is the plain version the graph is held
+to.  A capture that fails raises; the cuda executor never runs the
+eager body in the graph's place.
 
 State transfers: the device ST buffer takes only the rows each slot's
 env twin can read (those below its size at dispatch start), packed into
@@ -66,6 +67,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+from contextlib import nullcontext
 from typing import Any, Optional
 
 import numpy as np
@@ -311,21 +313,24 @@ class FusedProgram:
 
         t0 = time.perf_counter()
         dev = self.device
-        self.stop.fill_(True)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            self.superstep()
-            counts = uct_select.launches, uct_backup.launches
-            graph = torch.cuda.CUDAGraph()
-            graph.capture_begin()
-            try:
+        # the capture and its kernels' attributes act on the thread's
+        # current device: make it the arena's
+        with torch.cuda.device(dev):
+            self.stop.fill_(True)
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
                 self.superstep()
-            finally:
-                graph.capture_end()
-                # a capture launches nothing
-                uct_select.launches, uct_backup.launches = counts
-        torch.cuda.current_stream(dev).wait_stream(side)
+                counts = uct_select.launches, uct_backup.launches
+                graph = torch.cuda.CUDAGraph()
+                graph.capture_begin()
+                try:
+                    self.superstep()
+                finally:
+                    graph.capture_end()
+                    # a capture launches nothing
+                    uct_select.launches, uct_backup.launches = counts
+            torch.cuda.current_stream(dev).wait_stream(side)
         self.graph = graph
         captures += 1
         capture_s += time.perf_counter() - t0
@@ -450,16 +455,20 @@ class FusedProgram:
         if self._in_flight:
             raise RuntimeError("a fused dispatch of this program is in "
                                "flight: collect it before the next submit")
-        runs = self.prepare(active, K, states, budget_left)
-        t0 = t1 = None
-        if self.device.type == "cuda":
-            t0 = torch.cuda.Event(enable_timing=True)
-            t1 = torch.cuda.Event(enable_timing=True)
-            t0.record()
-        self.run(runs)
-        if t1 is not None:
-            t1.record()
-        out, done = self._read_back(runs)
+        cuda = self.device.type == "cuda"
+        # events, replays and the read-back go on the current stream of
+        # the thread's current device: make it the arena's
+        with torch.cuda.device(self.device) if cuda else nullcontext():
+            runs = self.prepare(active, K, states, budget_left)
+            t0 = t1 = None
+            if cuda:
+                t0 = torch.cuda.Event(enable_timing=True)
+                t1 = torch.cuda.Event(enable_timing=True)
+                t0.record()
+            self.run(runs)
+            if cuda:
+                t1.record()
+            out, done = self._read_back(runs)
         self._in_flight = True
         return PendingDispatch(self, runs, out, done, t0, t1)
 

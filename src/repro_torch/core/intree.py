@@ -94,11 +94,14 @@ SELECT_VARIANTS = ("faithful", "relaxed", "wavefront")
 
 def as_mask(active, device) -> torch.Tensor:
     """[G] bool mask on `device` from a numpy / list / tensor mask.  A
-    host mask's upload does not wait for the device's queue."""
+    host mask's upload (pinned, non-blocking) does not wait for the
+    device's queue."""
     if isinstance(active, torch.Tensor):
         return (active != 0).to(device)
     host = torch.from_numpy(np.ascontiguousarray(np.asarray(active) != 0))
-    return host.to(device, non_blocking=True)
+    if torch.device(device).type != "cuda":
+        return host
+    return host.pin_memory().to(device, non_blocking=True)
 
 
 def _slots(arena: UCTree) -> torch.Tensor:

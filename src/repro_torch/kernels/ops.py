@@ -3,7 +3,9 @@ as repro_torch.core.intree's arena ops (mirrors repro.kernels.ops).
 
 One launch covers every tree slot; inactive slots are untouched inside
 the kernels.  Host-side masks and per-worker arrays are moved to the
-arena's device as int32 here, so callers may pass numpy.
+arena's device as int32 here, so callers may pass numpy: through pinned
+memory and a non-blocking copy, so that queueing a phase (the overlap
+mode's staged Selection) never waits for the device.
 """
 
 from __future__ import annotations
@@ -18,8 +20,10 @@ from repro_torch.kernels import uct_backup, uct_select
 def _i32(x, device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=torch.int32).contiguous()
-    return torch.as_tensor(np.ascontiguousarray(np.asarray(x), np.int32),
-                           device=device)
+    host = torch.from_numpy(np.ascontiguousarray(np.asarray(x), np.int32))
+    if device.type != "cuda":
+        return host
+    return host.pin_memory().to(device, non_blocking=True)
 
 
 def select_arena(cfg: TreeConfig, arena: UCTree, active, p: int):

@@ -26,8 +26,10 @@ Compatibility adapters (deprecated surface, kept working):
 Everything runs on CUDA with the hand-written tree kernels unless the
 caller passes ``device="cpu"`` (or another executor);
 ``supersteps_per_dispatch=K > 1`` moves the pools onto the fused
-K-superstep device dispatch (core.fused).  ``n_shards > 1`` and
-``overlap=True`` raise NotImplementedError (ROADMAP.md queue A item 6).
+K-superstep device dispatch (core.fused); ``n_shards=D`` spreads each
+pool's slots over D per-device shard arenas (core.sharded), and
+``overlap=True`` pipelines each pool's supersteps over ``n_gangs``
+double-buffered gangs.
 """
 
 from repro_torch.service.client import SearchClient, SearchHandle

@@ -109,6 +109,11 @@ class SearchHandle:
                and core.ticks - start < max_ticks):
             if not self._client.poll(1):
                 break
+        if wait and self.uid not in core.results:
+            # clock budget spent (or drained) with an overlap gang
+            # possibly still in flight: finish it without advancing the
+            # clock — its commits may be this request's result
+            core.drain_inflight()
         res = core.results.get(self.uid)
         if res is None:
             if self.uid in core.expired_uids:
@@ -184,8 +189,20 @@ class SearchClient:
     at move commits and unresolvable expansions; per-request results are
     unchanged, and the clock advances by the supersteps a tick ran.
 
-    Not ported yet (refused with NotImplementedError naming the ROADMAP.md
-    queue A item): `n_shards > 1` and `overlap=True` (item 6).
+    Multi-device serving: `n_shards=D` partitions every bucket's G slots
+    into D per-device shard arenas (G must be a multiple of D); each
+    admission lands on the least-loaded shard and runs there, while
+    results stay bit-identical to n_shards=1 for every request.
+    `shard_devices` pins the shard->device map (default:
+    launch.mesh.serving_devices, ``cuda:(d % device_count)``).
+
+    Overlap serving: `overlap=True` pipelines each pool's supersteps over
+    `n_gangs` double-buffered slot gangs — one gang's host expansion and
+    simulation run while another's device phases are queued (service.pool,
+    "Overlap mode").  Per-request results are unchanged; clock-budget
+    exits (result/run_until/drain) finish any in-flight gang without
+    advancing the clock past the budget.  Incompatible with
+    `compact_threshold > 0`.
     """
 
     def __init__(
@@ -212,7 +229,9 @@ class SearchClient:
         trace_capacity: int = 1 << 16,
         result_ttl_ticks: Optional[int] = None,
         n_shards: int = 1,
+        shard_devices: Optional[list] = None,
         overlap: bool = False,
+        n_gangs: int = 2,
         sim_backend: Optional[SimulationBackend] = None,
         device=None,
     ):
@@ -252,7 +271,8 @@ class SearchClient:
             supersteps_per_dispatch=supersteps_per_dispatch,
             tracer=self.tracer, metrics=self.registry,
             result_ttl_ticks=result_ttl_ticks,
-            n_shards=n_shards, overlap=overlap, device=device)
+            n_shards=n_shards, shard_devices=shard_devices,
+            overlap=overlap, n_gangs=n_gangs, device=device)
         self._handles: dict[int, SearchHandle] = {}
 
     # ---- submission ----
@@ -296,6 +316,9 @@ class SearchClient:
         while not pred(self):
             if (self.core.ticks - start >= max_ticks
                     or not self.core.tick()):
+                # budget/drain exit: complete any in-flight overlap gang
+                # (no clock advance) before the final predicate check
+                self.core.drain_inflight()
                 return bool(pred(self))
         return True
 

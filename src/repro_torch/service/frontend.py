@@ -61,7 +61,9 @@ class ServiceFrontend:
         tracer=None,
         metrics=None,
         n_shards: int = 1,
+        shard_devices: Optional[list] = None,
         overlap: bool = False,
+        n_gangs: int = 2,
         device=None,
     ):
         self.client = SearchClient(
@@ -75,7 +77,8 @@ class ServiceFrontend:
             supersteps_per_dispatch=supersteps_per_dispatch,
             trace=tracer if tracer is not None else False,
             metrics=metrics if metrics is not None else False,
-            n_shards=n_shards, overlap=overlap, device=device)
+            n_shards=n_shards, shard_devices=shard_devices,
+            overlap=overlap, n_gangs=n_gangs, device=device)
         self.core = self.client.core
 
     # ---- historical attribute surface (delegated) ----

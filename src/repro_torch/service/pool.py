@@ -70,9 +70,40 @@ device twin cannot resolve (that superstep is completed through the
 ordinary host path), then commits moves.  It needs a device executor,
 an env and a sim backend with device twins, and no expand-all.
 
-Not ported yet, and refused at construction with NotImplementedError:
-multi-device shards (``n_shards > 1``) and the overlap mode's pipelined
-gangs (``overlap=True``), ROADMAP.md queue A item 6.
+Multi-device serving (D x G_shard): `n_shards=D` partitions the G slots
+into D contiguous runs of G_shard = G // D, one child arena per device
+each (core/sharded.py; shard d on launch.mesh.serving_devices(D)[d],
+``cuda:(d % device_count)``, or `shard_devices`).  Admission fills the
+LEAST-LOADED enabled shard first (ties break toward the lowest shard id,
+then the lowest free slot, so D=1 is exactly the lowest-free-slot
+order); `set_shard_enabled(d, False)` drains a shard — live requests
+finish, new admissions route around it.  The superstep body is
+unchanged: the sharded executor fans every phase out per device, host
+expansion and the (cross-pool fused) Simulation batch span all shards,
+and fused K-dispatches run per shard, each to its own escape
+(`fused_dispatch`).  Per-request results are bit-identical at any D.
+
+Overlap mode (`overlap=True`): pipelined supersteps over double-buffered
+gangs, the paper's CPU/accelerator stage pipelining.  The lock-step
+superstep serializes host and device: while the expansion engine, the
+env workers and the Simulation run, the device is idle, and vice versa.
+Overlap splits the slots into `n_gangs` fixed gangs (GangSchedule;
+gangs partition WITHIN each shard, so sharding composes) and each
+`begin_superstep` tick (1) stages the NEXT gang's device half
+(Selection + Node Insertion queued on the device, no host read), (2)
+promotes it — its one blocking read, then the `expand_submit` post to
+the env workers — and (3) collects the IN-FLIGHT gang's expansion batch
+and hands it back, so the promoted gang's workers step while the caller
+evaluates and finishes the collected gang.  Every device phase is
+masked per slot and gangs are disjoint, so one device stream in order
+computes each slot's trajectory bit-identically to lock-step.  The clock
+ticks when a gang superstep begins; `drain_overlap()` completes an
+in-flight gang WITHOUT advancing the clock, and runs before any
+cancel or eviction frees an active slot.  Overlap refuses active-slot
+compaction (two gangs in flight would race the session sub-arena), and
+composes with the fused K-dispatch: per tick one gang's fused programs
+are submitted (`run_supersteps_submit`, each gang on its own
+FusedProgram) before the previous gang's are collected and accounted.
 
 Determinism: with a deterministic SimulationBackend the per-slot tree
 evolution is bit-identical to a single-tree TreeParallelMCTS run of the
@@ -105,19 +136,6 @@ from repro_torch.obs.trace import NULL_TRACER
 def bucket_label(cfg: TreeConfig) -> str:
     """Human-readable bucket tag for metric labels and trace tracks."""
     return f"X{cfg.X}_D{cfg.D}_Fp{cfg.Fp}"
-
-
-def check_unported(n_shards: int = 1, overlap: bool = False) -> None:
-    """Refuse the serving modes the port does not have yet, naming the
-    ROADMAP.md queue A item that brings each."""
-    if int(n_shards) > 1:
-        raise NotImplementedError(
-            "n_shards > 1 (multi-device shards) is not ported yet: ROADMAP.md "
-            "queue A item 6")
-    if overlap:
-        raise NotImplementedError(
-            "overlap=True (pipelined gangs) is not ported yet: ROADMAP.md "
-            "queue A item 6")
 
 
 @dataclasses.dataclass
@@ -200,6 +218,74 @@ class _PendingStep:
     t_intree: float = 0.0        # begin-side wall, folded into the pool's
     t_host: float = 0.0          # timing stats at finish time
     tok: object = None           # open "superstep" span (obs.trace)
+    compacted: Optional[bool] = None  # ran on a session sub-arena?  None =
+    #                              infer from `ex is not pool.exec` (the
+    #                              sharded fused path sets it explicitly:
+    #                              its `ex` is a shard child, not a sub)
+
+
+class GangSchedule:
+    """Fixed partition of the G slots into `n_gangs` gangs plus the
+    round-robin staging order.  Gangs partition WITHIN each shard
+    (contiguous runs of the shard's slots), so every gang keeps balanced
+    per-device batches at D > 1.  The schedule is a pure function of
+    (G, n_gangs, shard_G) and the occupancy sequence: a fixed schedule
+    replays deterministically."""
+
+    def __init__(self, G: int, n_gangs: int, shard_G: Optional[int] = None):
+        shard_G = G if shard_G is None else int(shard_G)
+        self.n_gangs = max(1, min(int(n_gangs), shard_G))
+        self.gang_of = np.array(
+            [(g % shard_G) * self.n_gangs // shard_G for g in range(G)],
+            np.int64)
+        self.cursor = 0   # round-robin position of the next stage
+
+    def mask(self, gang: int) -> np.ndarray:
+        return self.gang_of == gang
+
+    def next_gang(self, active: np.ndarray,
+                  exclude: Optional[int] = None) -> Optional[int]:
+        """Next gang (round-robin from the cursor) holding at least one
+        active slot, skipping `exclude` (the in-flight gang).  None when
+        no other gang has work."""
+        for i in range(self.n_gangs):
+            cand = (self.cursor + i) % self.n_gangs
+            if cand == exclude:
+                continue
+            if bool((active & (self.gang_of == cand)).any()):
+                self.cursor = (cand + 1) % self.n_gangs
+                return cand
+        return None
+
+
+@dataclasses.dataclass
+class _StagedGang:
+    """A gang whose device half (Selection + Node Insertion) is queued
+    but not yet read back — the double buffer's async leg."""
+
+    gang: int
+    ex_active: np.ndarray        # [G] gang-restricted active mask
+    act_idx: np.ndarray          # occupied slots of this gang
+    sel_dev: object
+    new_nodes_dev: object        # device id block (executor insert_dev)
+    tok: object = None           # open "superstep" span on the gang track
+
+
+@dataclasses.dataclass
+class _InflightGang:
+    """A promoted gang: device results read back, host expansion batch
+    POSTED to the env workers (expand_submit) and running concurrently
+    with whatever the main thread does next.  _collect_inflight blocks
+    on it and builds the ordinary _PendingStep."""
+
+    gang: int
+    ex_active: np.ndarray
+    act_idx: np.ndarray
+    sel_dev: object
+    pexp: object                 # core.expand.PendingExpansion
+    t_intree: float
+    t_submit: float
+    tok: object = None
 
 
 @dataclasses.dataclass
@@ -297,10 +383,11 @@ class ArenaPool:
         tracer=None,
         metrics=None,
         n_shards: int = 1,
+        shard_devices: Optional[list] = None,
         overlap: bool = False,
+        n_gangs: int = 2,
         device=None,
     ):
-        check_unported(n_shards, overlap)
         self.cfg, self.env, self.sim = cfg, env, sim
         self.G, self.p = G, p
         self.executor_name = executor
@@ -368,6 +455,48 @@ class ArenaPool:
         # (fused_capable); K = 1 keeps the phase-by-phase path, the
         # oracle the fused path is held to
         self.supersteps_per_dispatch = max(1, int(supersteps_per_dispatch))
+        # multi-device serving: D per-device shard runs of G_shard slots
+        # each (module docstring, "Multi-device serving"); D=1 is the
+        # single-arena pool, bit for bit
+        self.n_shards = max(1, int(n_shards))
+        if G % self.n_shards:
+            raise ValueError(
+                f"G={G} must be a multiple of n_shards={self.n_shards}")
+        self.shard_G = G // self.n_shards
+        self.shard_devices = shard_devices
+        self._shard_enabled = [True] * self.n_shards
+        # overlap mode: pipelined supersteps over double-buffered gangs
+        # (module docstring, "Overlap mode").  A resident session
+        # sub-arena cannot track two gangs in flight.
+        self.overlap = bool(overlap)
+        self.n_gangs = max(1, int(n_gangs))
+        if self.overlap and compact_threshold > 0.0:
+            raise ValueError(
+                "overlap=True is incompatible with active-slot compaction "
+                "(compact_threshold > 0): a resident session sub-arena "
+                "would go stale under two gangs in flight")
+        self.gangs = (GangSchedule(G, self.n_gangs, self.shard_G)
+                      if self.overlap else None)
+        self._inflight: Optional[_InflightGang] = None
+        self._inflight_fused: Optional[dict] = None
+        self._gang_tids: dict = {}
+        # overlap busy-ratio bookkeeping: wall seconds of overlap ticks,
+        # and how much of them the main thread spent BLOCKED on the env
+        # workers (host side) / on device reads (device side)
+        self._ov_wall = 0.0
+        self._ov_wait_host = 0.0
+        self._ov_wait_dev = 0.0
+        if self.overlap:
+            self._m_busy_host = reg.gauge(
+                "service_overlap_busy_ratio",
+                "fraction of overlap-tick wall the main thread was not "
+                "blocked, by waiting side", bucket=label, side="host")
+            self._m_busy_dev = reg.gauge(
+                "service_overlap_busy_ratio", bucket=label, side="device")
+            self._m_ov_eff = reg.histogram(
+                "service_overlap_efficiency",
+                "per-tick percent of wall not spent blocked on env "
+                "workers or device reads", bucket=label)
         self.exec = self._make_executor()
         self.sts = self._make_state_tables()
         self.slots: list[Optional[_Slot]] = [None] * G
@@ -393,7 +522,9 @@ class ArenaPool:
 
     def _make_executor(self):
         return make_intree_executor(self.cfg, self.G, self.executor_name,
-                                    device=self.device)
+                                    device=self.device,
+                                    n_shards=self.n_shards,
+                                    devices=self.shard_devices)
 
     def _make_state_tables(self) -> list:
         return [StateTable(self.cfg.X, self.env.state_shape,
@@ -431,13 +562,49 @@ class ArenaPool:
                    else float("-inf"))
         return (req.priority, urgency, -i)
 
+    def shard_of(self, g: int) -> int:
+        """Owning shard of slot g (contiguous D-way partition)."""
+        return int(g) // self.shard_G
+
+    def shard_loads(self) -> list:
+        """Occupied-slot count per shard — the placement signal."""
+        loads = [0] * self.n_shards
+        for g, s in enumerate(self.slots):
+            if s is not None:
+                loads[g // self.shard_G] += 1
+        return loads
+
+    def set_shard_enabled(self, shard: int, enabled: bool = True):
+        """Failover lever: a disabled shard accepts no NEW admissions
+        (its live requests run to completion) — placement routes around
+        it until it is re-enabled."""
+        self._shard_enabled[int(shard)] = bool(enabled)
+
+    def _place_slot(self) -> Optional[int]:
+        """Cross-device placement: the lowest free slot of the
+        least-loaded ENABLED shard (ties: lowest shard id).  With D=1
+        this is exactly the lowest-free-slot order."""
+        loads = self.shard_loads()
+        best = None
+        for d in range(self.n_shards):
+            if not self._shard_enabled[d]:
+                continue
+            lo = d * self.shard_G
+            free = next((g for g in range(lo, lo + self.shard_G)
+                         if self.slots[g] is None), None)
+            if free is None:
+                continue
+            if best is None or loads[d] < loads[best[0]]:
+                best = (d, free)
+        return None if best is None else best[1]
+
     def _admit(self):
         limit = self.G if self.admit_limit is None \
             else max(0, min(self.admit_limit, self.G))
         active = sum(s is not None for s in self.slots)
         while self.queue and active < limit:
-            g = next((g for g, s in enumerate(self.slots) if s is None), None)
-            if g is None:
+            g = self._place_slot()
+            if g is None:   # every enabled shard is full
                 break
             i = max(range(len(self.queue)),
                     key=lambda j: self._admit_rank(self.queue[j], j))
@@ -461,7 +628,8 @@ class ArenaPool:
             self._m_admitted.inc()
             self._m_wait.observe(wait)
             self.trace.instant("admit", cat="request", tid=self._track,
-                               uid=req.uid, slot=g, wait=wait)
+                               uid=req.uid, slot=g, shard=g // self.shard_G,
+                               wait=wait)
             active += 1
 
     def _active(self) -> np.ndarray:
@@ -507,6 +675,14 @@ class ArenaPool:
                 return True
         for g, slot in enumerate(self.slots):
             if slot is not None and slot.req.uid == uid:
+                # an in-flight gang holding this slot must finish first:
+                # its queued selection/insertion reference the slot, and
+                # freeing it mid-pipeline would strand virtual losses
+                if self.overlap:
+                    self.drain_overlap()
+                    if self.slots[g] is None or self.slots[g].req.uid != uid:
+                        # the drained superstep completed this request
+                        return True
                 # freeing the slot is a membership change: a resident
                 # session spanning it must scatter + close first
                 self._invalidate_session(g)
@@ -635,12 +811,149 @@ class ArenaPool:
                     np.arange(A), act_idx)
         return self.exec, active, act_idx, act_idx
 
+    # ---- overlap pipeline (double-buffered gangs) ----
+    def _gang_track(self, gang: int) -> int:
+        """Per-gang trace track: gang supersteps interleave, so each
+        gang's spans nest on its own timeline."""
+        tid = self._gang_tids.get(gang)
+        if tid is None:
+            tid = self.trace.track(
+                f"pool:{bucket_label(self.cfg)}:gang{gang}")
+            self._gang_tids[gang] = tid
+        return tid
+
+    def _stage(self, gang: int, active: np.ndarray) -> _StagedGang:
+        """Queue one gang's device half (Selection + Node Insertion)
+        WITHOUT reading anything back: the kernels and ops go on the
+        device's stream and return; the blocking read waits until
+        _promote."""
+        gmask = active & self.gangs.mask(gang)
+        act_idx = np.flatnonzero(gmask)
+        tid = self._gang_track(gang)
+        tok = self.trace.begin("superstep", cat="phase", tid=tid,
+                               tick=self._now(), gang=gang,
+                               slots=len(act_idx))
+        with self.trace.span("select", cat="phase", tid=tid,
+                             slots=len(act_idx), gang=gang):
+            sel_dev = self.exec.selection(gmask, self.p)
+            new_dev = self.exec.insert_dev(gmask, sel_dev)
+            if self.trace.enabled:
+                self.exec.block()   # timing honesty: fence only when tracing
+        return _StagedGang(gang=gang, ex_active=gmask, act_idx=act_idx,
+                           sel_dev=sel_dev, new_nodes_dev=new_dev, tok=tok)
+
+    def _promote(self, st: _StagedGang) -> _InflightGang:
+        """Staged -> in flight: the gang's one blocking read (selection
+        and inserted ids) and the expansion batch's POST.  From here the
+        gang's env workers step while the main thread evaluates and
+        finishes another gang."""
+        t0 = time.perf_counter()
+        sel = self.exec.sel_to_host(st.sel_dev)
+        new_nodes = self.exec.insert_host(st.new_nodes_dev)
+        t_dev = time.perf_counter() - t0
+        self._ov_wait_dev += t_dev
+        pexp = self.expander.expand_submit(
+            [(g, self.sts[g], {k: v[g] for k, v in sel.items()},
+              new_nodes[g]) for g in st.act_idx],
+            tid=self._gang_tids.get(st.gang, self._track))
+        t1 = time.perf_counter()
+        # in-tree wall ~= the blocking read; the queueing itself returned
+        # at stage time
+        return _InflightGang(gang=st.gang, ex_active=st.ex_active,
+                             act_idx=st.act_idx, sel_dev=st.sel_dev,
+                             pexp=pexp, t_intree=t_dev,
+                             t_submit=(t1 - t0) - t_dev, tok=st.tok)
+
+    def _collect_inflight(self) -> _PendingStep:
+        """Block on the in-flight gang's posted expansion batch and build
+        the ordinary _PendingStep the caller evaluates and finishes."""
+        inf, self._inflight = self._inflight, None
+        t0 = time.perf_counter()
+        hx = self.expander.expand_collect(
+            inf.pexp, tid=self._gang_tids.get(inf.gang, self._track))
+        t_wait = time.perf_counter() - t0
+        self._ov_wait_host += t_wait
+        self.stats.t_expand += inf.t_submit + t_wait
+        sim_states = np.concatenate([hx[g].sim_states for g in inf.act_idx])
+        return _PendingStep(
+            ex=self.exec, ex_active=inf.ex_active, rows=inf.act_idx,
+            act_idx=inf.act_idx, sel_dev=inf.sel_dev, hx=hx,
+            sim_states=sim_states, t_intree=inf.t_intree,
+            t_host=inf.t_submit + t_wait, tok=inf.tok, compacted=False)
+
+    def _overlap_gauges(self, t_tick0: float) -> None:
+        self._ov_wall += time.perf_counter() - t_tick0
+        if self._ov_wall > 0:
+            self._m_busy_host.set(1.0 - self._ov_wait_host / self._ov_wall)
+            self._m_busy_dev.set(1.0 - self._ov_wait_dev / self._ov_wall)
+
+    def _begin_overlap(self) -> Optional[_PendingStep]:
+        """One overlap tick: stage + promote the next gang (device half
+        queued, expansion batch posted), then collect the in-flight
+        gang.  Returns the collected gang's pending step (one per tick,
+        like lock-step); with a single active gang the pipeline drains
+        each tick and degenerates to lock-step."""
+        if self._inflight_fused is not None:
+            # mode switch (a scheduler deadline cap dropped K to 1):
+            # finish the fused gang before pipelining phase-path gangs,
+            # or the same slots could select twice concurrently
+            self.drain_overlap()
+        self.stats.ticks += 1
+        t_tick0 = time.perf_counter()
+        self._admit()
+        self._m_queue.set(len(self.queue))
+        active = self._active()
+        self._m_active.set(int(active.sum()))
+        if not active.any():
+            # an in-flight gang implies occupied slots, so the pipeline
+            # is empty here
+            return None
+        if self._inflight is None:   # warm-up: fill the double buffer
+            self._inflight = self._promote(
+                self._stage(self.gangs.next_gang(active), active))
+        # stage AND promote the next gang before blocking on the in-flight
+        # gang's batch: the promoted gang's expansion then runs in the env
+        # workers across the in-flight gang's collect wait plus the
+        # caller's evaluate + finish (promote never touches the in-flight
+        # gang's slots)
+        nxt = self.gangs.next_gang(active, exclude=self._inflight.gang)
+        promoted = None if nxt is None else self._promote(
+            self._stage(nxt, active))
+        pend = self._collect_inflight()
+        self._inflight = promoted
+        self._overlap_gauges(t_tick0)
+        self._m_ov_eff.observe(100.0 * max(
+            0.0, 1.0 - (self._ov_wait_host + self._ov_wait_dev)
+            / max(self._ov_wall, 1e-12)))
+        return pend
+
+    def drain_overlap(self) -> int:
+        """Complete any in-flight gang WITHOUT advancing the clock: the
+        budget-bound contract (run/result/run_until max_ticks) and every
+        path that frees an active slot (cancel, deadline eviction, close)
+        must not leave a gang's queued selection/insertion unfinished.
+        Returns the number of supersteps completed (0 when idle)."""
+        n = 0
+        inf_f, self._inflight_fused = self._inflight_fused, None
+        if inf_f is not None:
+            n = max(n, self._fused_collect_gang(inf_f))
+        if self._inflight is not None:
+            pend = self._collect_inflight()
+            with self.trace.span("simulate", cat="phase", tid=self._track,
+                                 rows=len(pend.sim_states), drain=True):
+                values, priors = self._sim_evaluate(pend.sim_states)
+            self.finish_superstep(pend, values, priors)
+            n += 1
+        return n
+
     # ---- superstep, paused at the Simulation boundary ----
     def begin_superstep(self) -> Optional[_PendingStep]:
         """Admission + Selection + Insertion + host expansion.  Returns
         the pending step carrying the fused simulation rows, or None when
         no slot is occupied.  The caller evaluates the rows (alone or
         fused with other pools') and hands them to finish_superstep."""
+        if self.overlap:
+            return self._begin_overlap()
         self.stats.ticks += 1
         tok = self.trace.begin("superstep", cat="phase", tid=self._track,
                                tick=self._now())
@@ -748,7 +1061,9 @@ class ArenaPool:
                       self.alternating_signs)
             if self.trace.enabled:
                 ex.block()   # fence: device backup time stays in this span
-        if ex is not self.exec:
+        compacted = (pend.compacted if pend.compacted is not None
+                     else ex is not self.exec)
+        if compacted:
             self.stats.compacted_supersteps += 1
             if not self.persistent_compaction:
                 # per-superstep mode: scatter (and re-gather next tick)
@@ -793,9 +1108,15 @@ class ArenaPool:
         """True when this pool can run fused dispatches: a device executor
         (the reference keeps the phase-by-phase oracle), device twins of
         the env and the sim backend, and no expand-all priors (those force
-        the host expansion path)."""
-        return (self.exec is not None and not self.cfg.expand_all
-                and hasattr(self.exec, "run_supersteps")
+        the host expansion path).  A sharded executor is fused-capable
+        when every per-device child is (the fused program runs per
+        shard, never across shards)."""
+        ex = self.exec
+        if ex is None:
+            return False
+        children = [c for c, _, _ in getattr(ex, "shards", [(ex, 0, 0)])]
+        return (not self.cfg.expand_all
+                and all(hasattr(c, "run_supersteps") for c in children)
                 and has_device_env(self.env) and has_device_sim(self.sim))
 
     def fused_dispatch(self, max_supersteps: Optional[int] = None) -> int:
@@ -806,12 +1127,23 @@ class ArenaPool:
         ordinary host path, so every escape stays on the K=1 oracle
         trajectory).  Falls back to a single phase-by-phase superstep
         when K <= 1 or the pool is not fused-capable.  Returns the number
-        of complete supersteps executed (0 when no slot is occupied)."""
+        of complete supersteps executed (0 when no slot is occupied).
+
+        At D > 1 each shard dispatches its OWN fused program on its own
+        device, runs to its own escape, and handles its own commits and
+        escapes before the next shard dispatches — a commit boundary only
+        stops the shard that hit it, so the scheduler clock advances by
+        the max over shards.  Per-slot trajectories are unchanged
+        (commit boundaries are slot-local), so per-request results stay
+        bit-identical to D=1; pool-total dispatch counters become
+        per-shard sums."""
         K = self.supersteps_per_dispatch
         if max_supersteps is not None:
             K = min(K, max(1, int(max_supersteps)))
         if K <= 1 or not self.fused_capable():
             return 1 if self.superstep() else 0
+        if self.overlap:
+            return self._fused_overlap_tick(K)
         self.stats.ticks += 1
         tok = self.trace.begin("fused-dispatch", cat="phase",
                                tid=self._track, tick=self._now(), k=K)
@@ -822,9 +1154,44 @@ class ArenaPool:
         if not active.any():
             self.trace.end(tok)
             return 0
+        if self.n_shards > 1:
+            # masked on the per-device arenas, never on a session sub: a
+            # shard's move commit writes the full arena (reroot, reset,
+            # evict), which would stale a resident sub-arena the other
+            # shards still dispatch on this tick, so any session closes
+            # first.  Supersteps are grouping-independent: results stay.
+            self._close_session()
+            self._compacting = False
+            act_idx = np.flatnonzero(active)
+            self.last_decision = {
+                "A": len(act_idx), "G": self.G,
+                "occupancy": len(act_idx) / self.G, "compacted": False,
+                "G_exec": self.G, "session": None,
+            }
+            ns = [self._fused_dispatch_one(child, c_active, rows, c_idx, K,
+                                           on_sub=False, tok=None)
+                  for child, c_active, rows, c_idx
+                  in self._shard_parts(act_idx)]
+            self.trace.end(tok)
+            return max(ns) if ns else 0
         ex, ex_active, rows, act_idx = self._pick_execution(active)
         return self._fused_dispatch_one(ex, ex_active, rows, act_idx, K,
                                         on_sub=ex is not self.exec, tok=tok)
+
+    def _shard_parts(self, act_idx: np.ndarray) -> list:
+        """The shards holding some of `act_idx`: (child executor, child
+        active mask, child rows, global slot ids) each.  The arena itself
+        is the one shard at D=1."""
+        shards = getattr(self.exec, "shards", None) or [(self.exec, 0, self.G)]
+        parts = []
+        for child, lo, n_run in shards:
+            c_idx = act_idx[(act_idx >= lo) & (act_idx < lo + n_run)]
+            if not len(c_idx):
+                continue
+            c_active = np.zeros(child.G, bool)
+            c_active[c_idx - lo] = True
+            parts.append((child, c_active, c_idx - lo, c_idx))
+        return parts
 
     def _fused_dispatch_one(self, ex, ex_active, rows, act_idx, K: int,
                             on_sub: bool, tok) -> int:
@@ -938,7 +1305,8 @@ class ArenaPool:
             pend = _PendingStep(
                 ex=ex, ex_active=ex_active, rows=rows, act_idx=act_idx,
                 sel_dev=disp.sel_dev, hx=hx, sim_states=sim_states,
-                t_intree=t1 - t0, t_host=t2 - t1, tok=tok)
+                t_intree=t1 - t0, t_host=t2 - t1, tok=tok,
+                compacted=on_sub)
             t3 = time.perf_counter()
             values, priors = self._sim_evaluate(sim_states)
             self.finish_superstep(pend, values, priors,
@@ -951,6 +1319,89 @@ class ArenaPool:
         self._commit_moves(act_idx)
         if tok is not None:
             self.trace.end(tok)
+        return n
+
+    # ---- fused x overlap: double-buffered K-superstep dispatches ----
+    def _fused_submit_gang(self, gang: int, active: np.ndarray,
+                           K: int) -> dict:
+        """Queue one gang's fused dispatch per owning shard WITHOUT any
+        host read (run_supersteps_submit on the gang's own program): the
+        device runs it while the previous gang's collect, escape and
+        accounting hold the main thread."""
+        act_idx = np.flatnonzero(active & self.gangs.mask(gang))
+        parts = []
+        for child, c_active, rows, c_idx in self._shard_parts(act_idx):
+            t0 = time.perf_counter()
+            budget_left, states, start_size = self._fused_upload(
+                child, rows, c_idx)
+            pend = child.run_supersteps_submit(
+                c_active, self.p, K, self.env, self.sim, states,
+                budget_left, self.alternating_signs, gang=gang)
+            self.stats.t_fused_submit += time.perf_counter() - t0
+            parts.append(dict(child=child, c_active=c_active, rows=rows,
+                              act_idx=c_idx, start_size=start_size,
+                              pend=pend, t0=t0))
+        self.trace.instant("fused-stage", cat="phase",
+                           tid=self._gang_track(gang), gang=gang, k=K,
+                           slots=len(act_idx))
+        return {"gang": gang, "parts": parts}
+
+    def _fused_collect_gang(self, inf: dict) -> int:
+        """Block on a submitted gang's per-shard fused dispatches and run
+        the ordinary accounting and escape body for each.  Returns the
+        tick's superstep count (max over shards, as in the sharded
+        path)."""
+        ns = [0]
+        for part in inf["parts"]:
+            t_c0 = time.perf_counter()
+            disp = part["child"].run_supersteps_collect(part["pend"])
+            t_c1 = time.perf_counter()
+            self._ov_wait_dev += t_c1 - t_c0
+            self.stats.t_fused_collect += t_c1 - t_c0
+            self.stats.t_fused_device += 1e-3 * (disp.device_ms or 0.0)
+            ns.append(self._fused_finish_one(
+                part["child"], part["c_active"], part["rows"],
+                part["act_idx"], disp, part["start_size"],
+                on_sub=False, tok=None, t0=part["t0"]))
+            self.stats.t_fused_finish += time.perf_counter() - t_c1
+        return max(ns)
+
+    def _fused_overlap_tick(self, K: int) -> int:
+        """Overlap tick for K > 1: submit the next gang's fused programs,
+        then collect and account the in-flight gang's — its host half
+        runs while the freshly submitted programs execute on the
+        device."""
+        if self._inflight is not None:   # mode switch: K rose above 1
+            self.drain_overlap()
+        self.stats.ticks += 1
+        t_tick0 = time.perf_counter()
+        tok = self.trace.begin("fused-dispatch", cat="phase",
+                               tid=self._track, tick=self._now(), k=K,
+                               overlap=True)
+        self._admit()
+        self._m_queue.set(len(self.queue))
+        active = self._active()
+        self._m_active.set(int(active.sum()))
+        if not active.any():
+            self.trace.end(tok)
+            return 0
+        self.last_decision = {
+            "A": int(active.sum()), "G": self.G,
+            "occupancy": float(active.sum()) / self.G, "compacted": False,
+            "G_exec": self.G, "session": None,
+        }
+        if self._inflight_fused is None:   # warm-up
+            self._inflight_fused = self._fused_submit_gang(
+                self.gangs.next_gang(active), active, K)
+        nxt = self.gangs.next_gang(active,
+                                   exclude=self._inflight_fused["gang"])
+        staged = None if nxt is None \
+            else self._fused_submit_gang(nxt, active, K)
+        inf, self._inflight_fused = self._inflight_fused, None
+        n = self._fused_collect_gang(inf)
+        self._inflight_fused = staged
+        self.trace.end(tok)
+        self._overlap_gauges(t_tick0)
         return n
 
     # ---- move boundary: commit / advance / evict ----
@@ -1040,11 +1491,15 @@ class ArenaPool:
                     break
             elif not self.superstep():
                 break
+        if self.overlap:   # a budget exit can leave a gang in flight
+            self.drain_overlap()
         return self.completed
 
     def close(self):
-        """Flush any resident session and release expansion-engine
-        resources (process pool, if any)."""
+        """Flush any in-flight gang and resident session, and release
+        expansion-engine resources (process pool, if any)."""
+        if self.overlap and not self.retired:
+            self.drain_overlap()
         self._close_session()
         if self._owns_expander:
             self.expander.close()

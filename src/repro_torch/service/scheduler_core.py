@@ -1,8 +1,6 @@
 """SchedulerCore — global cross-pool scheduling behind the SearchClient.
 
-The port of repro.service.scheduler_core (lock-step pools, with the fused
-K-superstep dispatch; multi-device shards and the overlap mode are
-ROADMAP.md queue A item 6, refused at construction).
+The port of repro.service.scheduler_core.
 
 Mirsoleimani et al.'s *Structured Parallel Programming for MCTS* argues
 the scheduler, not the tree ops, should own parallel structure; the
@@ -51,6 +49,19 @@ Scheduling never changes what a request computes — per-slot tree
 evolution is schedule-independent (tests/test_executor_matrix.py), so
 every policy, fused or not, returns bit-identical per-request results;
 policies only move WHEN work happens (fairness, deadlines, batch shape).
+
+Multi-device serving: with ``n_shards=D`` every pool partitions its G
+slots into D per-device shard arenas (core/sharded.py) and the POOL does
+cross-device placement (ArenaPool._place_slot: the least-loaded enabled
+shard).  The core stays device-agnostic: cross-pool fused evaluate
+batching, the policies, deadlines and retirement all operate on whole
+pools, and the clock advances by the deepest fused dispatch — the max
+over per-shard dispatches.
+
+Overlap serving: with ``overlap=True`` every pool pipelines its
+supersteps over ``n_gangs`` double-buffered gangs (service.pool,
+"Overlap mode"); tick() is unchanged, and a clock-budget exit calls
+``drain_inflight`` so that no gang stays in flight past the budget.
 """
 
 from __future__ import annotations
@@ -71,7 +82,7 @@ from repro_torch.obs.metrics import NULL_REGISTRY
 from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.service.pool import (
     ArenaPool, MoveEvent, SearchRequest, SearchResult, ServiceStats,
-    bucket_label, check_unported,
+    bucket_label,
 )
 
 __all__ = [
@@ -286,10 +297,11 @@ class SchedulerCore:
         metrics=None,
         result_ttl_ticks: Optional[int] = None,
         n_shards: int = 1,
+        shard_devices: Optional[list] = None,
         overlap: bool = False,
+        n_gangs: int = 2,
         device=None,
     ):
-        check_unported(n_shards, overlap)
         self.env, self.sim = env, sim
         self.G, self.p = G, p
         self.executor = executor
@@ -326,6 +338,15 @@ class SchedulerCore:
         # every fused-capable pool onto it; the clock then advances by
         # the supersteps each tick ran (see tick)
         self.supersteps_per_dispatch = max(1, int(supersteps_per_dispatch))
+        # D-sharded serving: every bucket's pool partitions its G slots
+        # across n_shards per-device arenas; the pool owns the placement
+        self.n_shards = max(1, int(n_shards))
+        self.shard_devices = shard_devices
+        # overlap serving: every pool pipelines its supersteps over
+        # n_gangs double-buffered gangs; drain_inflight completes the
+        # gangs in flight when a clock budget stops the loop
+        self.overlap = bool(overlap)
+        self.n_gangs = max(1, int(n_gangs))
         self._pool_kw = dict(
             supersteps_per_dispatch=self.supersteps_per_dispatch,
             alternating_signs=alternating_signs,
@@ -333,6 +354,10 @@ class SchedulerCore:
             compact_threshold=compact_threshold,
             compact_exit_threshold=compact_exit_threshold,
             persistent_compaction=persistent_compaction,
+            n_shards=self.n_shards,
+            shard_devices=shard_devices,
+            overlap=self.overlap,
+            n_gangs=self.n_gangs,
             device=self.device,
         )
         # ONE host-expansion engine (and process pool, in "pool" mode)
@@ -588,7 +613,21 @@ class SchedulerCore:
         start = self.ticks
         while self.ticks - start < max_ticks and self.tick():
             pass
+        # a clock-budget exit can leave overlap gangs in flight; finish
+        # them WITHOUT advancing the clock past the budget
+        self.drain_inflight()
         return self.completed
+
+    def drain_inflight(self) -> int:
+        """Complete every pool's in-flight overlap gang without advancing
+        the global clock (the budget-bound contract of run/result/
+        run_until, extended to pipelined gangs).  Returns the number of
+        drained supersteps; 0 when overlap is off or nothing is in
+        flight."""
+        if not self.overlap:
+            return 0
+        return sum(pool.drain_overlap() for pool in self.pools.values()
+                   if not pool.retired)
 
     # ---- aggregate views ----
     @property

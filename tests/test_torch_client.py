@@ -6,9 +6,10 @@
     through the port's: each request's SearchResult must be identical,
     and the weighted policy's fused batches must really span pools on
     both;
-  * the lock-step cases of tests/test_client.py and tests/test_obs.py,
-    their own bodies run on the port (tests/port_cases.py), each one a
-    case of one parametrised test.
+  * the cases of tests/test_client.py (its shard placement and overlap
+    drain cases included) and tests/test_obs.py, their own bodies run on
+    the port (tests/port_cases.py), each one a case of one parametrised
+    test.
 
 The JAX runs are cached per module.  Everything runs on the CPU.
 """
@@ -73,18 +74,7 @@ def test_policies_match_jax(policy, executor):
         assert got_x > 0
 
 
-UNPORTED = {
-    "test_shard_placement_balances_load": "shards: ROADMAP.md queue A item 6",
-    "test_shard_failover_disable_and_reenable": "shards: item 6",
-    "test_shard_count_must_divide_g": "shards: item 6",
-    "test_resurrected_pool_keeps_shard_partition": "shards: item 6",
-    "test_run_max_ticks_drains_inflight_gang_within_budget": "overlap: item 6",
-    "test_result_max_ticks_drains_inflight_gang": "overlap: item 6",
-    "test_run_until_budget_exit_drains_inflight_gang": "overlap: item 6",
-    "test_run_max_ticks_bounds_clock_under_fused_overlap": "overlap: item 6",
-    "test_overlap_results_match_lockstep_through_client": "overlap: item 6",
-    "test_overlap_rejects_compaction": "overlap: item 6",
-}
+UNPORTED: dict = {}
 CASES = [c for m in ("test_client", "test_obs")
          for c in port_cases.cases(m, UNPORTED)]
 

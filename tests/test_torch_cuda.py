@@ -236,25 +236,27 @@ def test_flash_kernel_refuses_misaligned_bf16_stride():
 
 # -- the serving path (repro_torch.service) on the card -------------------
 
-def serving_stream(executor, G=16, p=4, K=1):
+def serving_stream(executor, G=16, p=4, K=1, **kw):
     """A short seeded stream through SearchClient on the card: 24
     requests over two shape classes (weighted-queue-depth: cross-pool
     fused Simulation), compaction sessions below half occupancy, one
     cancel, one deadline eviction.  With the fused dispatch (K > 1) a
     tick runs up to K supersteps, so request 5 is cancelled after its
     first move instead of after two ticks (a point that is the same
-    under any grouping of supersteps).  Returns ({uid: SearchResult},
-    client stats, xpool batches)."""
+    under any grouping of supersteps).  Keyword arguments override the
+    client's settings.  Returns ({uid: SearchResult}, client stats, xpool
+    batches)."""
     from repro_torch.envs import BanditTreeEnv, BanditValueBackend
     from repro_torch.service import SearchClient, SearchRequest
 
     cfgs = [TreeConfig(X=512, F=4, D=6), TreeConfig(X=256, F=4, D=6)]
     rng = np.random.RandomState(0)
+    opts = dict(policy="weighted-queue-depth", compact_threshold=0.5,
+                expansion="vector", supersteps_per_dispatch=K)
+    opts.update(kw)
     cl = SearchClient(BanditTreeEnv(fanout=4, terminal_depth=10),
                       BanditValueBackend(), G=G, p=p, executor=executor,
-                      policy="weighted-queue-depth", compact_threshold=0.5,
-                      expansion="vector", supersteps_per_dispatch=K,
-                      device="cuda")
+                      device="cuda", **opts)
     try:
         reqs = [SearchRequest(
             uid=i, seed=int(rng.randint(1000)), budget=int(rng.randint(3, 9)),
@@ -405,7 +407,7 @@ def test_fused_graph_matches_eager_body(case):
     ex = CudaExecutor(cfg, 4, device="cuda", _trees=from_numpy(arrays, "cuda"))
     n_sel, n_bak = uct_select.launches, uct_backup.launches
     got = ex.run_supersteps(FUSED_ACTIVE, 4, 16, env, sim, states, budgets, False)
-    assert ex._fused.graph is not None
+    assert ex._fused[0].graph is not None
     # the capture's warm-up launched each kernel once, predicated off
     assert uct_select.launches - n_sel == got.replays + 1
     assert uct_backup.launches - n_bak == got.replays + 1
@@ -473,11 +475,12 @@ def test_released_executor_drops_its_graph():
     ex = CudaExecutor(cfg, 4, device="cuda", _trees=from_numpy(arrays, "cuda"))
     ex.run_supersteps(FUSED_ACTIVE, 4, 4, env, sim, states,
                       np.asarray(budgets, np.int32), False)
-    prog = weakref.ref(ex._fused)
-    graph = weakref.ref(ex._fused.graph)
+    prog = weakref.ref(ex._fused[0])
+    graph = weakref.ref(ex._fused[0].graph)
     held = torch.cuda.memory_allocated() - base
     arena = sum(t.numel() * t.element_size() for t in vars(ex.trees).values())
-    st = ex._fused.states.numel() * ex._fused.states.element_size()
+    buf = ex._fused[0].states
+    st = buf.numel() * buf.element_size()
     assert held >= arena + st
     ex.release()
     gc.collect()
@@ -533,3 +536,103 @@ def test_select_kernel_captures_past_48k_shared_memory():
         assert torch.equal(getattr(got, k), getattr(want, k)), k
     for k in ("edge_VL", "node_O"):
         assert torch.equal(getattr(a, k), getattr(b, k)), k
+
+
+# -- pipelined gangs and sharded pools (service.pool) on the card ---------
+
+def assert_streams_equal(got, want):
+    for uid, b in want.items():
+        a = got[uid]
+        assert (a.actions, a.rewards, a.supersteps, a.cancelled,
+                a.deadline_evicted) == (b.actions, b.rewards, b.supersteps,
+                                        b.cancelled, b.deadline_evicted), uid
+        for va, vb in zip(a.visit_counts, b.visit_counts):
+            np.testing.assert_array_equal(va, vb)
+        for k in (b.tree_snapshot or {}):
+            np.testing.assert_array_equal(a.tree_snapshot[k],
+                                          b.tree_snapshot[k], err_msg=k)
+
+
+@pytest.mark.cuda
+def test_two_gang_graphs_in_flight_match_eager_body():
+    """Two gangs' fused dispatches on one arena, each replaying its own
+    captured CUDA graph, both submitted before either is collected,
+    equal the plain (faithful) eager body run gang after gang from the
+    same arena, bit for bit."""
+    need_cuda()
+    from repro_torch.core import fused
+    from repro_torch.core.executor import CudaExecutor
+
+    cfg, _, _, _ = FUSED_CASES["ran_k"]
+    arrays, states, env, sim = fused_start(cfg, False)
+    gangs = [np.array([True, False, True, False]),
+             np.array([False, True, False, True])]
+    budgets = np.array([3, 100, 100, 5], np.int32)
+    ex = CudaExecutor(cfg, 4, device="cuda", _trees=from_numpy(arrays, "cuda"))
+    pend = [ex.run_supersteps_submit(m, 4, 8, env, sim, states, budgets,
+                                     False, gang=i)
+            for i, m in enumerate(gangs)]
+    assert ex._fused[0]._in_flight and ex._fused[1]._in_flight
+    assert ex._fused[0].graph is not None and ex._fused[1].graph is not None
+    got = [ex.run_supersteps_collect(x) for x in pend]
+    plain = fused.FusedProgram(cfg, "faithful", from_numpy(arrays, "cuda"), 4,
+                               env, sim, False)
+    want = [plain.collect(plain.submit(m, 8, states, budgets)) for m in gangs]
+    for d, w, m in zip(got, want, gangs):
+        assert (d.n, d.escape) == (w.n, w.escape)
+        for k in ("size_pre", "sizes", "states_lo"):
+            np.testing.assert_array_equal(getattr(d, k), getattr(w, k))
+        for r in np.flatnonzero(m):
+            np.testing.assert_array_equal(d.written(r)[1], w.written(r)[1])
+    a, b = to_numpy(ex.trees), to_numpy(plain.trees)
+    for k in TREE_FIELDS:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+@pytest.mark.cuda
+def test_overlap_stage_makes_no_host_sync(monkeypatch):
+    """The overlap mode's staged device half (Selection + Node Insertion
+    of a gang) queues its work without a host sync: every _stage of a
+    stream runs under CUDA's sync debug mode "error", and the stream's
+    results equal the numpy oracle's with the same overlap settings."""
+    need_cuda()
+    from repro_torch.service.pool import ArenaPool
+
+    stage = ArenaPool._stage
+    staged = []
+
+    def strict(pool, gang, active):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = stage(pool, gang, active)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        staged.append(pool._inflight is not None)
+        return out
+
+    monkeypatch.setattr(ArenaPool, "_stage", strict)
+    got, stats, _ = serving_stream("cuda", overlap=True, compact_threshold=0.0)
+    monkeypatch.undo()
+    assert any(staged)          # a gang staged while another was in flight
+    want, _, _ = serving_stream("reference", overlap=True,
+                                compact_threshold=0.0)
+    assert_streams_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_sharded_pool_on_one_card_matches_reference():
+    """n_shards=2 with both shards on cuda:0: the short stream, masked
+    and on per-shard session sub-arenas, equals the numpy oracle's, and
+    each phase launches each tree kernel once per shard with an active
+    slot."""
+    need_cuda()
+    from repro_torch.launch.mesh import serving_devices
+
+    assert serving_devices(2, "cuda:0")[0] == torch.device("cuda", 0)
+    n_sel = uct_select.launches
+    got, stats, _ = serving_stream("cuda", n_shards=2,
+                                   shard_devices=[torch.device("cuda", 0)] * 2)
+    assert stats.session_gathers >= 1
+    assert stats.supersteps <= uct_select.launches - n_sel <= 2 * stats.supersteps
+    want, _, _ = serving_stream("reference", n_shards=2)
+    assert_streams_equal(got, want)

@@ -241,12 +241,13 @@ def test_run_equals_collect_of_submit(case):
     ta, tb = to_numpy(a.trees), to_numpy(b.trees)
     for k in FIELDS:
         np.testing.assert_array_equal(ta[k], tb[k], err_msg=k)
-    # the executor caches its program, and a second dispatch reuses it
-    prog = a._fused
+    # the executor caches its (gang 0) program, and a second dispatch
+    # reuses it
+    prog = a._fused[0]
     a.run_supersteps(*args)
-    assert a._fused is prog
+    assert a._fused == {0: prog}
     a.release()
-    assert a._fused is None and a.trees is None
+    assert a._fused == {} and a.trees is None
 
 
 def test_device_finalize_matches_host_finalize():

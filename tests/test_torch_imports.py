@@ -50,6 +50,8 @@ def test_import_loads_no_jax_module():
         "import repro_torch.models.lm, repro_torch.models.steps\n"
         "import repro_torch.serving, repro_torch.sim, repro_torch.obs\n"
         "import repro_torch.launch.serve, repro_torch.configs.llama3_2_1b\n"
+        "import repro_torch.core.sharded, repro_torch.launch.mesh\n"
+        "import repro_torch.models.sharding\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n")

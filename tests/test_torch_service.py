@@ -9,13 +9,14 @@
     vector}: every SearchResult must be identical (actions, rewards,
     visit counts, supersteps, flags, every field of the tree snapshot);
     the port's relaxed / wavefront against the JAX package's;
-  * the lock-step cases of tests/test_service.py, tests/test_frontend.py,
-    tests/test_executor_matrix.py and tests/test_arena_pallas.py (its
-    "pallas" executor is the port's "cuda"), their own bodies run on the
-    port (tests/port_cases.py), each one a case of one parametrised test;
-  * the serving modes the port does not have yet raise
-    NotImplementedError naming their ROADMAP.md queue A item, and the
-    fused K-superstep dispatch runs through every entry point.
+  * the cases of tests/test_service.py, tests/test_frontend.py,
+    tests/test_executor_matrix.py (its sharded and overlap legs
+    included) and tests/test_arena_pallas.py (its "pallas" executor is
+    the port's "cuda"), their own bodies run on the port
+    (tests/port_cases.py), each one a case of one parametrised test;
+  * the fused K-superstep dispatch, D=2 shards and the overlap mode's
+    pipelined gangs run through every entry point to the K=1 oracle's
+    results.
 
 The JAX runs are cached per module, as test_executor_matrix.py's
 _RESULTS does.  Everything runs on the CPU.
@@ -122,18 +123,18 @@ def test_relaxed_and_wavefront_streams_match_jax(executor, compact):
     assert_results_identical(got, jax_stream(executor)[0], executor)
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(supersteps_per_dispatch=4), None),
-    (dict(n_shards=2), "item 6"),
-    (dict(overlap=True), "item 6"),
+@pytest.mark.parametrize("kw", [
+    dict(supersteps_per_dispatch=4),
+    dict(n_shards=2),
+    dict(overlap=True),
 ], ids=["fused-dispatch", "shards", "overlap"])
 @pytest.mark.parametrize("entry", ["SearchClient", "ServiceFrontend",
                                    "SearchService", "ArenaPool"])
-def test_unported_modes_raise(kw, item, entry):
-    """No unported mode quietly runs lock-step: each raises naming the
-    ROADMAP.md queue A item that brings it.  The fused dispatch (item 3)
-    is ported: each entry point runs K=4 to completion through it, with
-    the K=1 oracle's results."""
+def test_serving_modes_run_every_entry_point(kw, entry, monkeypatch):
+    """Every serving mode runs through every entry point to completion
+    with the K=1 lock-step oracle's results: the fused K=4 dispatch
+    (with commit escapes), D=2 shards (both shards take work) and the
+    overlap mode's two pipelined gangs (both staged)."""
     env, sim = BanditTreeEnv(fanout=4, terminal_depth=10), BanditValueBackend()
     cfg = TreeConfig(**MATRIX)
     make = {
@@ -147,16 +148,32 @@ def test_unported_modes_raise(kw, item, entry):
         "ArenaPool": lambda: ArenaPool(cfg, env, sim, G=4, p=P,
                                        device="cpu", **kw),
     }[entry]
-    if item is not None:
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP.md queue A {item}"):
-            make()
-        return
+    seen = {"shards": set(), "gangs": set()}
+    place, stage = ArenaPool._place_slot, ArenaPool._stage
+
+    def placed(pool):
+        g = place(pool)
+        if g is not None:
+            seen["shards"].add(pool.shard_of(g))
+        return g
+
+    def staged(pool, gang, active):
+        seen["gangs"].add(gang)
+        return stage(pool, gang, active)
+
+    monkeypatch.setattr(ArenaPool, "_place_slot", placed)
+    monkeypatch.setattr(ArenaPool, "_stage", staged)
     got = run_entry(make(), entry)
+    monkeypatch.undo()
     want = run_entry(ArenaPool(cfg, env, sim, G=4, p=P, executor="reference",
                                device="cpu"), "ArenaPool")
     assert_results_identical(got[0], want[0], entry)
-    assert got[1].fused_dispatches > 0 and got[1].fused_escape_commit > 0
+    if "supersteps_per_dispatch" in kw:
+        assert got[1].fused_dispatches > 0 and got[1].fused_escape_commit > 0
+    elif "n_shards" in kw:
+        assert seen["shards"] == {0, 1}
+    else:
+        assert seen["gangs"] == {0, 1}
 
 
 def run_entry(svc, entry: str):
@@ -222,18 +239,6 @@ UNPORTED = {
         "GomokuEnv and the policy-net backend: ROADMAP.md queue A item 7",
     "test_expand_all_vector_matches_loop":
         "GomokuEnv and the policy-net backend: item 7",
-    "test_sharded_serving_bit_identical": "shards: item 6",
-    "test_sharded_compaction_bit_identical": "shards: item 6",
-    "test_sharded_fused_dispatch_bit_identical": "shards: item 6",
-    "test_overlap_bit_identical_to_lockstep": "overlap: item 6",
-    "test_overlap_gang_count_is_semantics_free": "overlap: item 6",
-    "test_overlap_off_is_bit_identical_on_every_executor":
-        "the overlap refactor's n_gangs argument: item 6",
-    "test_overlap_deterministic_replay": "overlap: item 6",
-    "test_overlap_sharded_bit_identical": "overlap, shards: item 6",
-    "test_overlap_fused_dispatch_bit_identical": "overlap: item 6",
-    "test_overlap_fused_sharded_composes": "overlap, shards: item 6",
-    "test_overlap_trace_exposes_gang_tracks": "overlap: item 6",
     "test_nn_backend_cache_is_semantics_free":
         "SimServer, the cache and the NN backend: item 7",
     "test_nn_backend_matches_reference": "the NN backend: item 7",
