@@ -118,7 +118,25 @@ Phases (each raises on any failure, so the exit code is not 0):
      lock-step at K=1 (both with pool expansion), each held to its
      oracle, for the ratio of their speeds, searches/s, the
      service_overlap_busy_ratio gauges and the graph captures; (d) no
-     env worker process initialised CUDA.
+     env worker process initialised CUDA;
+ 12. the paper's Gomoku benchmark (b) at full width (X=48,000, F=36, D=5,
+     PUCT, expand-all, p=16), the policy-value net (C=32, seeded random
+     weights) as the Simulation: (a) the net on the card against the same
+     net on the CPU (TF32 off) at B in {1, 16, 64, 256}, within 1e-5,
+     NNSimBackend's rows bit-identical across those batch sizes and a
+     permutation, its dispatch under CUDA's sync debug mode "error", two
+     dispatches in flight each finalized with its own rows; (b)
+     TreeParallelMCTS (cuda) held superstep by superstep to the numpy
+     oracle on the same backend until the tree is full, each tree kernel
+     once per superstep; (c) two run_step() calls (the second
+     re-rooting), a profiled window of 20 supersteps (busy share, each
+     tree kernel's device ms), the B=16 forward's device ms and the host
+     ms of dispatch + finalize; (d) a 12-request stream through
+     SearchClient (G=8) over CachedSimBackend(SimServer(max_batch=64)),
+     equal to a numpy-oracle client's, cache off equal to cache on with
+     cache hits, every forward 64 rows, K=8 equal to K=1; (e) the stream
+     with overlap=True, two gangs, held to an overlap oracle, and three
+     alternating overlap / lock-step pairs for the ratio of their speeds.
 
 It prints JSON lines; the line before the last is {"kernels": [...]} and
 the last is {"ok": true, "device": {...}}.  It imports nothing of the JAX
@@ -2073,6 +2091,409 @@ def phase_overlap(want) -> dict:
     return {"overlap": ov["launches"], "shards": shards}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the paper's Gomoku benchmark (b), the policy-value net as the
+# Simulation backend, at full width
+# ---------------------------------------------------------------------------
+
+GOMOKU_C, GOMOKU_P, GOMOKU_G = 32, 16, 8
+NN_BATCHES = (1, 16, 64, 256)
+NN_TOL = 1e-5            # card vs CPU, f32 with TF32 off
+NN_MAX_BATCH, NN_CACHE = 64, 8192
+GOMOKU_REQUESTS, GOMOKU_PAIRS = 12, 3
+GOMOKU_WINDOW = 20       # supersteps under the profiler
+
+
+def gomoku_states(n: int, seed: int) -> np.ndarray:
+    """n Gomoku states from seeded random playouts; terminal rows kept."""
+    from repro_torch.envs import GomokuEnv
+
+    env, rng, out = GomokuEnv(), np.random.default_rng(seed), []
+    while len(out) < n:
+        s = env.initial_state(0)
+        for _ in range(int(rng.integers(0, 41))):
+            if env.num_actions(s) == 0:
+                break
+            s, _, _ = env.step(s, int(rng.integers(env.num_actions(s))))
+        out.append(s)
+    return np.stack(out)
+
+
+def gomoku_params() -> dict:
+    from repro_torch.envs.policy_net import init_params
+
+    return init_params(torch.Generator().manual_seed(0), channels=GOMOKU_C)
+
+
+def counting_nn(params, device=None):
+    """An NNSimBackend that records the row count of every dispatch."""
+    from repro_torch.envs import GomokuEnv
+    from repro_torch.envs.policy_net import NNSimBackend
+
+    class CountingNN(NNSimBackend):
+        def dispatch(self, states):
+            self.rows.append(len(states))
+            return super().dispatch(states)
+
+    be = CountingNN(GomokuEnv(), params, device=DEV if device is None else device)
+    be.rows = []
+    return be
+
+
+def nn_checks(params) -> dict:
+    """(a) The net on the card against the same net on the CPU (TF32 off)
+    at B in NN_BATCHES, within NN_TOL; the backend's rows bit-identical
+    across those batch sizes and a permutation; the card backend against
+    the CPU backend (terminal values exactly); a dispatch under CUDA's
+    sync debug mode "error"; two dispatches in flight, each finalized
+    with its own rows."""
+    from repro_torch.envs.policy_net import (
+        PolicyValueNet, canonical_boards, exact_f32,
+    )
+
+    states = gomoku_states(max(NN_BATCHES), 0)
+    term = states[:, 1] != 0
+    boards = torch.from_numpy(canonical_boards(states)).view(-1, 6, 6)
+    cpu_net, card_net = PolicyValueNet(params), PolicyValueNet(params).to(DEV)
+    err = {"values": 0.0, "logits": 0.0}
+    raw = {}
+    with exact_f32(), torch.no_grad():
+        cv, cl = cpu_net(boards)
+        for B in NN_BATCHES:
+            v, lg = (t.cpu() for t in card_net(boards[:B].to(DEV)))
+            err["values"] = max(err["values"], float((v - cv[:B]).abs().max()))
+            err["logits"] = max(err["logits"], float((lg - cl[:B]).abs().max()))
+            raw[B] = (v, lg)
+    top = max(NN_BATCHES)
+    raw_rows_same = all(torch.equal(raw[B][0], raw[top][0][:B])
+                        and torch.equal(raw[B][1], raw[top][1][:B])
+                        for B in NN_BATCHES)
+    be, cpu_be = counting_nn(params), counting_nn(params, device="cpu")
+    fv, fp = be.evaluate(states)
+    rows_same = all(np.array_equal(v, fv[:B]) and np.array_equal(pr, fp[:B])
+                    for B in NN_BATCHES for v, pr in [be.evaluate(states[:B])])
+    perm = np.random.default_rng(1).permutation(top)
+    pv, pp = be.evaluate(states[perm])
+    rows_same = rows_same and np.array_equal(pv, fv[perm]) \
+        and np.array_equal(pp, fp[perm])
+    cpv, cpp = cpu_be.evaluate(states)
+    backend_err = max(float(np.abs(fv - cpv).max()), float(np.abs(fp - cpp).max()))
+
+    a, b = states[:16], states[16:80]
+    for _ in range(2):       # both in-flight stagings allocated before
+        ta, tb = be.dispatch(a), be.dispatch(b)
+        be.finalize(tb, b), be.finalize(ta, a)
+    torch.cuda.synchronize()
+    with sync_errors():
+        ta, tb = be.dispatch(a), be.dispatch(b)
+    vb, pb = be.finalize(tb, b)
+    va, pa = be.finalize(ta, a)
+    checks = {
+        "card_vs_cpu_within_tol": max(err.values()) <= NN_TOL,
+        "backend_card_vs_cpu_within_tol": backend_err <= NN_TOL,
+        "terminal_values_exact": bool(np.array_equal(fv[term], cpv[term])),
+        "rows_independent_of_batch": bool(rows_same),
+        "in_flight_rows_own": bool(
+            np.array_equal(va, fv[:16]) and np.array_equal(pa, fp[:16])
+            and np.array_equal(vb, fv[16:80]) and np.array_equal(pb, fp[16:80])),
+    }
+    out = dict(channels=GOMOKU_C, batches=list(NN_BATCHES),
+               terminal_rows=int(term.sum()), tol=NN_TOL,
+               max_abs_err=max(err.values()), max_abs_err_values=err["values"],
+               max_abs_err_logits=err["logits"],
+               backend_max_abs_err=backend_err,
+               raw_net_rows_batch_independent=raw_rows_same,
+               dispatch_sync_free=True, checks=checks)
+    emit(phase="gomoku_nn", **out)
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"gomoku net checks failed: {bad} ({err}, "
+                             f"backend {backend_err})")
+    return out
+
+
+def gomoku_mcts(executor: str, sim):
+    from repro_torch.configs.gomoku_cfg import TREE
+    from repro_torch.core import TreeParallelMCTS
+    from repro_torch.envs import GomokuEnv
+
+    return TreeParallelMCTS(TREE, GomokuEnv(), sim, p=GOMOKU_P,
+                            executor=executor, alternating_signs=True,
+                            expansion="vector", device=DEV)
+
+
+def gomoku_main_path(params) -> dict:
+    """(b) TreeParallelMCTS at the Gomoku width on the cuda executor, held
+    superstep by superstep to the numpy oracle on the same backend until
+    the tree holds X nodes (or a superstep adds none: an expand-all
+    needs room for every child): every selection and the final tree
+    identical, each tree kernel once per superstep."""
+    from repro_torch.kernels import uct_backup, uct_select
+
+    sim = counting_nn(params)
+    mc, mr = gomoku_mcts("cuda", sim), gomoku_mcts("reference", sim)
+    steps, t_cuda, t_ref = 0, 0.0, 0.0
+    uct_select.launches = uct_backup.launches = 0
+    while mc._size() < mc.cfg.X:
+        size = mc._size()
+        t0 = time.perf_counter()
+        a = mc.superstep()
+        t1 = time.perf_counter()
+        b = mr.superstep()
+        t_cuda += t1 - t0
+        t_ref += time.perf_counter() - t1
+        for k in b:
+            if not np.array_equal(a[k], b[k]):
+                raise AssertionError(f"gomoku superstep {steps}: {k} differs "
+                                     f"from the numpy oracle")
+        steps += 1
+        if mc._size() == size:
+            break
+    launches = {"uct_select": uct_select.launches,
+                "uct_backup": uct_backup.launches}
+    sc, sr = mc.exec.snapshot(mc.tree), mr.exec.snapshot(mr.tree)
+    diff = [k for k in sr if not np.array_equal(sc[k], sr[k])]
+    if diff:
+        raise AssertionError(f"gomoku final tree differs from the oracle in {diff}")
+    for name, n in launches.items():
+        if n != steps:
+            raise AssertionError(f"{name} launched {n} times in {steps} "
+                                 f"gomoku supersteps")
+    if not sc["edge_P"].any():
+        raise AssertionError("no prior reached the gomoku tree")
+    out = dict(X=mc.cfg.X, F=mc.cfg.F, D=mc.cfg.D, p=GOMOKU_P, C=GOMOKU_C,
+               supersteps=steps, tree_size=int(sc["size"]), identical=True,
+               launches=launches, nn_forwards=len(sim.rows),
+               cuda_s=t_cuda, reference_s=t_ref)
+    emit(phase="gomoku_main_path", **out)
+    return out
+
+
+def gomoku_timed(params) -> dict:
+    """(c) Two run_step() calls (the second re-rooting): ms per superstep
+    by phase and supersteps/s; a profiled window of GOMOKU_WINDOW
+    supersteps (device busy share, device ms per launch of each tree
+    kernel and of the net's forward); the NN forward at B=16 (device ms
+    of its kernels, host ms of dispatch + finalize)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.envs.policy_net import canonical_boards
+    from repro_torch.kernels import uct_backup, uct_select
+
+    sim = counting_nn(params)
+    m = gomoku_mcts("cuda", sim)
+    uct_select.launches = uct_backup.launches = 0
+    rows = []
+    for reuse in (False, True):
+        m.stats = type(m.stats)()
+        t0 = time.perf_counter()
+        a, _, _ = m.run_step(reuse_subtree=reuse)
+        wall = time.perf_counter() - t0
+        s = m.stats
+        n = max(s.supersteps, 1)
+        row = dict(reuse_subtree=reuse, action=int(a), supersteps=s.supersteps,
+                   wall_s=wall, supersteps_per_s=s.supersteps / wall,
+                   ms_per_superstep={k: 1e3 * getattr(s, "t_" + k) / n for k in (
+                       "select", "insert", "st", "sim", "transfer", "backup",
+                       "intree", "total")})
+        emit(phase="gomoku_run_step", **row)
+        rows.append(row)
+    launches = {"uct_select": uct_select.launches,
+                "uct_backup": uct_backup.launches}
+    steps = sum(r["supersteps"] for r in rows)
+    if any(n != steps for n in launches.values()):
+        raise AssertionError(f"gomoku run_step launches {launches} in {steps} "
+                             f"supersteps")
+
+    w = gomoku_mcts("cuda", sim)
+    for _ in range(5):
+        w.superstep()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(GOMOKU_WINDOW):
+            w.superstep()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    union_ms, evs, names = device_intervals_ms(prof)
+    per_kernel = {}
+    for e in evs:
+        for key in ("uct_select_kernel", "uct_backup_kernel"):
+            if key in e.name:
+                per_kernel.setdefault(key, []).append(
+                    (e.time_range.end - e.time_range.start) / 1e3)
+    window = dict(supersteps=GOMOKU_WINDOW, wall_ms=wall,
+                  device_busy_ms=union_ms, busy=union_ms / wall,
+                  device_events=len(evs),
+                  kernel_device_ms={k: float(np.mean(v))
+                                    for k, v in per_kernel.items()},
+                  kernel_launches={k: len(v) for k, v in per_kernel.items()})
+
+    states = gomoku_states(16, 3)
+    be = counting_nn(params)
+    up = torch.from_numpy(be.padded(canonical_boards(states))).to(DEV)
+    fwd = wall_and_device_ms(lambda: be.forward_rows(up), 50)
+    be.evaluate(states)
+    t = {"dispatch": 0.0, "finalize": 0.0}
+    n = 50
+    for _ in range(n):
+        t0 = time.perf_counter()
+        tok = be.dispatch(states)
+        t1 = time.perf_counter()
+        be.finalize(tok, states)
+        t2 = time.perf_counter()
+        t["dispatch"] += t1 - t0
+        t["finalize"] += t2 - t1
+    nn = dict(rows=16, padded_rows=int(up.shape[0]), forward=fwd,
+              host_ms={k: 1e3 * v / n for k, v in t.items()},
+              host_ms_dispatch_finalize=1e3 * sum(t.values()) / n)
+    out = dict(run_step=rows, launches=launches, window=window, nn_forward=nn)
+    emit(phase="gomoku_timed", launches=launches, window=window, nn_forward=nn)
+    return out
+
+
+def gomoku_stream(seed: int = 0) -> list:
+    """GOMOKU_REQUESTS seeded requests: budgets 16-48 supersteps a move,
+    1-2 moves, every fourth keeps its tree."""
+    rng = np.random.RandomState(seed)
+    return [dict(uid=i, seed=int(rng.randint(1 << 20)),
+                 budget=int(rng.randint(16, 49)), moves=int(rng.randint(1, 3)),
+                 keep_tree=i % 4 == 0) for i in range(GOMOKU_REQUESTS)]
+
+
+def gomoku_run(stream, params, executor="cuda", cache=True, **kw) -> dict:
+    """The stream through SearchClient(GomokuEnv(), CachedSimBackend(
+    SimServer(NNSimBackend), NN_CACHE) (cache=False: the SimServer
+    alone), G=GOMOKU_G, p=GOMOKU_P, the Gomoku TREE, alternating signs,
+    vector expansion); kw adds to or overrides the client's settings.
+    Returns the results, the wall, the stats, the launches, the metrics
+    snapshot and the row count of every forward."""
+    from repro_torch.configs.gomoku_cfg import TREE
+    from repro_torch.envs import GomokuEnv
+    from repro_torch.kernels import uct_backup, uct_select
+    from repro_torch.service import SearchClient, SearchRequest
+    from repro_torch.sim import CachedSimBackend, SimServer
+
+    nn = counting_nn(params)
+    sim = SimServer(nn, max_batch=NN_MAX_BATCH)
+    if cache:
+        sim = CachedSimBackend(sim, capacity=NN_CACHE)
+    uct_select.launches = uct_backup.launches = 0
+    opts = dict(expansion="vector", metrics=True)
+    opts.update(kw)
+    cl = SearchClient(GomokuEnv(), sim_backend=sim, executor=executor,
+                      G=GOMOKU_G, p=GOMOKU_P, default_cfg=TREE,
+                      alternating_signs=True, device=DEV, **opts)
+    try:
+        t0 = time.perf_counter()
+        hs = [cl.submit(SearchRequest(**r)) for r in stream]
+        got = {h.uid: h.result() for h in hs}
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        snap = cl.registry.snapshot()
+        stats, ticks = cl.stats, cl.core.ticks
+    finally:
+        cl.close()
+    return {"got": got, "wall": wall, "stats": stats, "ticks": ticks,
+            "launches": {"uct_select": uct_select.launches,
+                         "uct_backup": uct_backup.launches},
+            "metrics": {k: v for k, v in snap.items()
+                        if k.startswith(("sim_server", "sim_cache",
+                                         "service_overlap_busy_ratio"))},
+            "rows": nn.rows}
+
+
+def gomoku_serving(params) -> dict:
+    """(d) The stream on the cuda executor with SimServer and the cache,
+    held to a numpy-oracle client with the same sim stack; cache off
+    equal to cache on, with cache hits; every forward exactly
+    NN_MAX_BATCH rows; supersteps_per_dispatch=8 equal to K=1 (expand-all
+    is refused by the fused dispatch, so it runs the phase path)."""
+    stream = gomoku_stream()
+    on = gomoku_run(stream, params)
+    ref = gomoku_run(stream, params, executor="reference")
+    n = results_identical(on["got"], ref["got"], "gomoku cuda vs the numpy oracle")
+    off = gomoku_run(stream, params, cache=False)
+    results_identical(off["got"], on["got"], "gomoku cache off vs cache on")
+    k8 = gomoku_run(stream, params, supersteps_per_dispatch=8)
+    results_identical(k8["got"], on["got"], "gomoku K=8 vs K=1")
+    st = on["stats"]
+    hits = sum(on["metrics"].get("sim_cache_hits_total", {}).values())
+    checks = {
+        "cache_hits": hits > 0,
+        "forwards_full_width": all(r == NN_MAX_BATCH for run in (on, off, k8)
+                                   for r in run["rows"]),
+        "launches_per_pool_tick": all(v == st.supersteps
+                                      for v in on["launches"].values()),
+        "k8_phase_path": k8["stats"].fused_dispatches == 0,
+    }
+    out = dict(G=GOMOKU_G, p=GOMOKU_P, requests=n, identical=True,
+               checks=checks, wall_s=on["wall"], searches_per_s=n / on["wall"],
+               wall_s_cache_off=off["wall"], wall_s_k8=k8["wall"],
+               reference_s=ref["wall"], ticks=on["ticks"],
+               pool_supersteps=st.supersteps, launches=on["launches"],
+               ms_per_tick={k: 1e3 * getattr(st, "t_" + k) / max(on["ticks"], 1)
+                            for k in ("intree", "expand", "host", "sim")},
+               forwards=len(on["rows"]), forwards_cache_off=len(off["rows"]),
+               metrics=on["metrics"], metrics_cache_off=off["metrics"])
+    emit(phase="gomoku_serving", **out)
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"gomoku serving checks failed: {bad}")
+    return {"want": ref["got"], "launches": on["launches"], "stream": stream}
+
+
+def gomoku_overlap(params, stream, want) -> dict:
+    """(e) The stream with overlap=True, n_gangs=2 (K=1, vector expansion)
+    held to a numpy-oracle client with the same overlap settings (and
+    to the lock-step oracle); GOMOKU_PAIRS alternating pairs, overlap
+    against lock-step, each held to its oracle: the median speed ratio
+    (lock-step wall over overlap wall), its range, the busy-ratio
+    gauges."""
+    ov = dict(overlap=True, n_gangs=2)
+    want_ov = gomoku_run(stream, params, executor="reference", **ov)["got"]
+    results_identical(want_ov, want, "gomoku overlap oracle vs lock-step oracle")
+    walls = {"overlap": [], "lockstep": []}
+    gauges, launches = [], None
+    for i in range(GOMOKU_PAIRS):
+        order = (("overlap", ov), ("lockstep", {}))
+        for mode, kw in (order if i % 2 == 0 else order[::-1]):
+            r = gomoku_run(stream, params, **kw)
+            results_identical(r["got"], want_ov if mode == "overlap" else want,
+                              f"gomoku {mode} vs its oracle")
+            walls[mode].append(r["wall"])
+            if mode == "overlap":
+                gauges.append(r["metrics"].get("service_overlap_busy_ratio", {}))
+                launches = r["launches"]
+    ratio = [a / b for a, b in zip(walls["lockstep"], walls["overlap"])]
+    n = len(want)
+    out = {"pairs": GOMOKU_PAIRS, "wall_s": walls,
+           "searches_per_s": {k: [n / w for w in v] for k, v in walls.items()},
+           "speed_ratio_overlap_over_lockstep": ratio,
+           "median_ratio": float(np.median(ratio)), "min_ratio": min(ratio),
+           "max_ratio": max(ratio), "busy_ratio": gauges,
+           "launches_overlap": launches}
+    emit(phase="gomoku_overlap", **out)
+    return out
+
+
+def phase_gomoku() -> dict:
+    """Phase 12: the paper's Gomoku benchmark (b) at full width. Returns
+    the tree kernels' launches and device ms on its paths."""
+    t_phase = time.perf_counter()
+    params = gomoku_params()
+    nn_checks(params)
+    main = gomoku_main_path(params)
+    timed = gomoku_timed(params)
+    serving = gomoku_serving(params)
+    overlap = gomoku_overlap(params, serving["stream"], serving["want"])
+    emit(phase="gomoku", seconds=time.perf_counter() - t_phase)
+    return {"main": main["launches"], "run_step": timed["launches"],
+            "serving": serving["launches"],
+            "overlap": overlap["launches_overlap"],
+            "device_ms": timed["window"]["kernel_device_ms"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2108,6 +2529,7 @@ def main() -> int:
     serving = phase_serving(mc)
     fused_launches = phase_fused(serving["want"])
     overlap_launches = phase_overlap(serving["want"])
+    gomoku = phase_gomoku()
     for row in kernels[:2]:
         row["launches_serving"] = serving["launches"][row["name"]]
         row["launches_fused"] = {f"K{K}": fused_launches[K][row["name"]]
@@ -2118,6 +2540,10 @@ def main() -> int:
         row["serving_device_ms"] = {
             f"G{G}": serving[f"G{G}"][row["name"] + "_device_ms"]
             for G in (SERVE_G, SERVE_G // 2)}
+        row["launches_gomoku"] = {k: gomoku[k][row["name"]] for k in (
+            "main", "run_step", "serving", "overlap")}
+        row["gomoku_path_device_ms"] = gomoku["device_ms"].get(
+            row["name"] + "_kernel")
     emit(phase="total", seconds=round(time.perf_counter() - t_start, 3))
     print(gpu, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -4,6 +4,8 @@ Each ported arch has its own module exporting CONFIG (the published
 numbers) and SMOKE (a reduced config of the same family for CPU tests).
 Only the dense GQA archs of the LM slice are ported; asking for another
 raises ``NotImplementedError`` naming the ROADMAP.md item that ports it.
+The MCTS benchmark configs of the paper itself live in pong.py /
+gomoku_cfg.py, outside the registry.
 """
 
 from __future__ import annotations

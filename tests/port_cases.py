@@ -11,6 +11,15 @@ repro_torch (no copy of it exists).  The rewrite:
     executor name "cuda" for "pallas");
   * every call of a serving entry point gets ``device="cpu"``, since the
     port's entry points run on CUDA unless the caller asks for the CPU;
+  * the weights a body builds from a JAX key come from the JAX package,
+    carried into the port's layout (``REBIND``): the policy net's
+    ``init_params`` is ``jax_key_init_params`` (through the port's
+    ``params_from_numpy``) and the LM's ``lm.init_params`` is
+    ``jax_key_lm.init_params`` (through ``from_jax_params``), so the
+    port's NN and LM legs compute the JAX package's functions;
+  * imports of the JAX package's modules that the port does not have
+    (``JAX_ONLY``) stay on the JAX package, for the bodies that use them
+    (the callers exclude those bodies);
   * in a module listed in ``SHIMS`` (the device-twin tests of
     tests/test_fused_dispatch.py), ``jax`` and ``jnp`` are rebound after
     the module runs: ``jax.jit(f)`` calls f on torch tensors made from
@@ -44,7 +53,13 @@ VALUE_MAP = {"pallas": "cuda"}
 DEVICE_CALLS = {"SearchClient", "SearchService", "ServiceFrontend",
                 "ArenaPool", "TreeParallelMCTS", "make_arena_executor",
                 "make_intree_executor", "TorchArenaExecutor",
-                "CudaArenaExecutor"} | set(NAME_MAP)
+                "CudaArenaExecutor", "NNSimBackend"} | set(NAME_MAP)
+# (JAX module, name) -> the name in this module that stands for it
+REBIND = {("repro.envs.policy_net", "init_params"): "jax_key_init_params",
+          ("repro.models", "lm"): "jax_key_lm"}
+# modules of the JAX package the port does not have: host-only fault
+# bookkeeping (repro.distributed.fault), outside the port's slices
+JAX_ONLY = {"repro.distributed.fault"}
 
 
 def _to_port(name: str) -> str:
@@ -63,13 +78,20 @@ class _ToPort(ast.NodeTransformer):
         return node
 
     def visit_ImportFrom(self, node):
-        if node.level == 0 and node.module:
+        if node.level != 0 or node.module in JAX_ONLY:
+            return node
+        rebound = [ast.ImportFrom("port_cases", [ast.alias(
+            REBIND[(node.module, a.name)], a.asname or a.name)], 0)
+            for a in node.names if (node.module, a.name) in REBIND]
+        node.names = [a for a in node.names
+                      if (node.module, a.name) not in REBIND]
+        if node.module:
             node.module = _to_port(node.module)
         for a in node.names:
             if a.name in NAME_MAP:
                 a.asname = a.asname or a.name
                 a.name = NAME_MAP[a.name]
-        return node
+        return ([node] if node.names else []) + rebound
 
     def visit_Attribute(self, node):
         self.generic_visit(node)
@@ -90,6 +112,34 @@ class _ToPort(ast.NodeTransformer):
             node.keywords.append(
                 ast.keyword(arg="device", value=ast.Constant("cpu")))
         return node
+
+
+def jax_key_init_params(key, channels: int = 32) -> dict:
+    """The JAX package's policy-net init_params(key, channels), carried
+    into the port's layout by params_from_numpy."""
+    from repro.envs.policy_net import init_params
+    from repro_torch.envs.policy_net import params_from_numpy
+
+    return params_from_numpy({k: np.asarray(v) for k, v in
+                              init_params(key, channels).items()})
+
+
+def _jax_key_lm_init_params(cfg, key) -> dict:
+    """The JAX package's lm.init_params(its config of cfg's name, key),
+    carried into the port by from_jax_params, on the CPU."""
+    import jax
+
+    from repro import configs as jconfigs
+    from repro.models import lm as jlm
+    from repro_torch.models.lm import from_jax_params
+
+    smoke = cfg.name.endswith("-smoke")
+    jcfg = jconfigs.get_config(cfg.name.removesuffix("-smoke"), smoke=smoke)
+    params = jlm.init_params(jcfg, key)
+    return from_jax_params(cfg, jax.tree.map(np.asarray, params), "cpu")
+
+
+jax_key_lm = types.SimpleNamespace(init_params=_jax_key_lm_init_params)
 
 
 def _jit(fn):

@@ -636,3 +636,173 @@ def test_sharded_pool_on_one_card_matches_reference():
     assert stats.supersteps <= uct_select.launches - n_sel <= 2 * stats.supersteps
     want, _, _ = serving_stream("reference", n_shards=2)
     assert_streams_equal(got, want)
+
+
+# -- the Gomoku benchmark: the policy-value net as the Simulation backend --
+
+def gomoku_states(n, seed):
+    """n Gomoku states from seeded random playouts; terminal rows kept."""
+    from repro_torch.envs import GomokuEnv
+
+    env, rng, out = GomokuEnv(), np.random.default_rng(seed), []
+    while len(out) < n:
+        s = env.initial_state(0)
+        for _ in range(int(rng.integers(0, 41))):
+            if env.num_actions(s) == 0:
+                break
+            s, _, _ = env.step(s, int(rng.integers(env.num_actions(s))))
+        out.append(s)
+    return np.stack(out)
+
+
+def nn_params(channels=32):
+    from repro_torch.envs.policy_net import init_params
+
+    return init_params(torch.Generator().manual_seed(0), channels=channels)
+
+
+@pytest.mark.cuda
+def test_policy_net_on_card_matches_cpu():
+    """The net on the card (TF32 off) within 1e-5 of the same net on the
+    CPU; the backend's rows bit-identical across batch sizes on the card,
+    terminal values exact."""
+    need_cuda()
+    from repro_torch.envs import GomokuEnv
+    from repro_torch.envs.policy_net import (
+        NNSimBackend, PolicyValueNet, canonical_boards, exact_f32,
+    )
+
+    params = nn_params()
+    states = gomoku_states(256, 0)
+    boards = torch.from_numpy(canonical_boards(states)).view(-1, 6, 6)
+    with exact_f32(), torch.no_grad():
+        cv, cl = PolicyValueNet(params)(boards)
+        gv, gl = PolicyValueNet(params).cuda()(boards.cuda())
+    assert (gv.cpu() - cv).abs().max() <= 1e-5
+    assert (gl.cpu() - cl).abs().max() <= 1e-5
+    be = NNSimBackend(GomokuEnv(), params)
+    v, pr = be.evaluate(states)
+    cpu_v, cpu_p = NNSimBackend(GomokuEnv(), params, device="cpu").evaluate(states)
+    term = states[:, 1] != 0
+    np.testing.assert_array_equal(v[term], cpu_v[term])
+    np.testing.assert_allclose(v, cpu_v, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(pr, cpu_p, rtol=0, atol=1e-5)
+    for B in (1, 16, 64):
+        bv, bp = be.evaluate(states[:B])
+        np.testing.assert_array_equal(bv, v[:B])
+        np.testing.assert_array_equal(bp, pr[:B])
+
+
+@pytest.mark.cuda
+def test_nn_dispatch_makes_no_host_sync():
+    """NNSimBackend.dispatch (pinned staging, non-blocking upload, the
+    forward and the download queued, an event recorded) runs under CUDA's
+    sync debug mode "error"; finalize waits on the event."""
+    need_cuda()
+    from repro_torch.envs import GomokuEnv
+    from repro_torch.envs.policy_net import NNSimBackend
+
+    be = NNSimBackend(GomokuEnv(), nn_params())
+    states = gomoku_states(16, 1)
+    want = be.evaluate(states)          # warm: the staging exists
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tok = be.dispatch(states)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    got = be.finalize(tok, states)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_nn_dispatches_in_flight_keep_their_rows():
+    """Two dispatches in flight at once, finalized in the other order,
+    each return their own rows (each owns its pinned staging)."""
+    need_cuda()
+    from repro_torch.envs import GomokuEnv
+    from repro_torch.envs.policy_net import NNSimBackend
+
+    be = NNSimBackend(GomokuEnv(), nn_params())
+    a, b = gomoku_states(16, 2), gomoku_states(100, 3)
+    want_a, want_b = be.evaluate(a), be.evaluate(b)
+    ta, tb = be.dispatch(a), be.dispatch(b)
+    for got, want in ((be.finalize(tb, b), want_b), (be.finalize(ta, a), want_a)):
+        for x, y in zip(got, want):
+            np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.cuda
+def test_gomoku_mcts_cuda_matches_reference():
+    """TreeParallelMCTS at the Gomoku width (X=48,000, F=36, D=5, p=16,
+    expand-all, PUCT) with the net on the card: the cuda executor's
+    selections and tree equal the numpy oracle's over 12 supersteps,
+    one launch of each tree kernel a superstep."""
+    need_cuda()
+    from repro_torch.configs.gomoku_cfg import TREE
+    from repro_torch.core import TreeParallelMCTS
+    from repro_torch.envs import GomokuEnv
+    from repro_torch.envs.policy_net import NNSimBackend
+
+    sim = NNSimBackend(GomokuEnv(), nn_params())
+    mc, mr = (TreeParallelMCTS(TREE, GomokuEnv(), sim, p=16, executor=ex,
+                               alternating_signs=True, expansion="vector")
+              for ex in ("cuda", "reference"))
+    n_sel, n_bak = uct_select.launches, uct_backup.launches
+    for step in range(12):
+        a, b = mc.superstep(), mr.superstep()
+        for k in b:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=f"{step}: {k}")
+    assert uct_select.launches - n_sel == 12 == uct_backup.launches - n_bak
+    sa, sb = mc.exec.snapshot(mc.tree), mr.exec.snapshot(mr.tree)
+    for k in sb:
+        np.testing.assert_array_equal(sa[k], sb[k], err_msg=k)
+    assert sa["edge_P"].any()
+
+
+@pytest.mark.cuda
+def test_gomoku_serving_with_simserver_matches_reference():
+    """A short Gomoku stream through SearchClient with SimServer and the
+    cache (the net on the card): the cuda client equals the numpy-oracle
+    client with the same sim stack, cache off equals cache on, the cache
+    hits, and every forward has max_batch rows."""
+    need_cuda()
+    from repro_torch.envs import GomokuEnv
+    from repro_torch.envs.policy_net import NNSimBackend
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.service import SearchClient, SearchRequest
+    from repro_torch.sim import CachedSimBackend, SimServer
+
+    cfg = TreeConfig(X=2048, F=36, D=5, beta=5.0, score_fn="puct",
+                     leaf_mode="unexpanded", expand_all=True)
+    params = nn_params(8)
+
+    def run(executor, cache):
+        nn = NNSimBackend(GomokuEnv(), params)
+        rows = []
+        dispatch = nn.dispatch
+        nn.dispatch = lambda s: (rows.append(len(s)), dispatch(s))[1]
+        sim = SimServer(nn, max_batch=32)
+        reg = MetricsRegistry()
+        if cache:
+            sim = CachedSimBackend(sim, capacity=1024)
+        cl = SearchClient(GomokuEnv(), sim_backend=sim, G=4, p=8,
+                          executor=executor, default_cfg=cfg,
+                          alternating_signs=True, expansion="vector",
+                          metrics=reg)
+        try:
+            hs = [cl.submit(SearchRequest(uid=i, seed=i, budget=4 + i % 3,
+                                          moves=1 + i % 2, keep_tree=True))
+                  for i in range(6)]
+            return {h.uid: h.result() for h in hs}, reg, rows
+        finally:
+            cl.close()
+
+    got, reg, rows = run("cuda", True)
+    want, _, _ = run("reference", True)
+    off, _, rows_off = run("cuda", False)
+    assert_streams_equal(got, want)
+    assert_streams_equal(off, got)
+    assert reg.get("sim_cache_hits_total").value > 0
+    assert set(rows) == set(rows_off) == {32}

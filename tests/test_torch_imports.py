@@ -52,6 +52,9 @@ def test_import_loads_no_jax_module():
         "import repro_torch.launch.serve, repro_torch.configs.llama3_2_1b\n"
         "import repro_torch.core.sharded, repro_torch.launch.mesh\n"
         "import repro_torch.models.sharding\n"
+        "import repro_torch.envs.gomoku, repro_torch.envs.policy_net\n"
+        "import repro_torch.sim.server, repro_torch.sim.cache\n"
+        "import repro_torch.configs.gomoku_cfg, repro_torch.configs.pong\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n")
@@ -69,6 +72,27 @@ def test_serving_import_loads_no_kernel_module():
         "import repro_torch.service, repro_torch.envs.device\n"
         "bad = [m for m in sys.modules if m.startswith('repro_torch.kernels')]\n"
         "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_sim_import_loads_no_model_module():
+    """repro_torch.sim imports the LM pieces lazily: SimServer and the
+    cache never pull in the model stack, nor does the policy net."""
+    code = (
+        "import sys\n"
+        "from repro_torch.sim import SimServer, CachedSimBackend\n"
+        "bad = [m for m in sys.modules if m.startswith('repro_torch.models')"
+        " or m == 'repro_torch.sim.lm']\n"
+        "assert not bad, bad\n"
+        "import repro_torch.envs.policy_net\n"
+        "bad = [m for m in sys.modules if m in ('repro_torch.models.lm', "
+        "'repro_torch.models.layers', 'repro_torch.sim.lm')]\n"
+        "assert not bad, bad\n"
+        "from repro_torch.sim import LMTreeEnv\n"
+        "assert 'repro_torch.sim.lm' in sys.modules\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)

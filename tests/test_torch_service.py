@@ -234,15 +234,7 @@ def test_capability_probes_match_jax(obj):
 
 # -- the JAX package's own lock-step cases, run on the port ---------------
 
-UNPORTED = {
-    "test_expand_all_puct_service_runs":
-        "GomokuEnv and the policy-net backend: ROADMAP.md queue A item 7",
-    "test_expand_all_vector_matches_loop":
-        "GomokuEnv and the policy-net backend: item 7",
-    "test_nn_backend_cache_is_semantics_free":
-        "SimServer, the cache and the NN backend: item 7",
-    "test_nn_backend_matches_reference": "the NN backend: item 7",
-}
+UNPORTED: dict = {}
 CASES = [c for m in ("test_service", "test_frontend", "test_executor_matrix",
                       "test_arena_pallas")
          for c in port_cases.cases(m, UNPORTED)]
