@@ -43,9 +43,11 @@ Phases (each raises on any failure, so the exit code is not 0):
      naive_attention) on the card: tests/test_flash_kernel.py's SHAPES x
      {f32, bf16} x window {None, 64}, the full-width head shapes of
      llama3.2-1b, starcoder2-3b and gemma3-12b (window 1024 and none) at
-     B=1, S=2048, and the shapes the main paths give it at llama3.2-1b
-     width (phase 8's B=1 forwards of 2-43 tokens, phase 6's B=4 x 512,
-     the serve prefill's B=16 x 2048), within f32 2e-5 / bf16 2e-2; each
+     B=1, S=2048, recurrentgemma-9b's local MQA (H=16, Hkv=1, dh=256,
+     window 2048) there and at phase 13's B=4 and B=16 x 2048, and the
+     shapes the main paths give it at llama3.2-1b width (phase 8's B=1
+     forwards of 2-43 tokens, phase 6's B=4 x 512, the serve prefill's
+     B=16 x 2048), within f32 2e-5 / bf16 2e-2; each
      bf16 case is also held, within one bf16 rounding of the output, to
      the plain version run in f32 on the same (bf16) inputs;
   6. full-width llama3.2-1b in an f32 copy (TF32 off): the flash prefill
@@ -57,7 +59,9 @@ Phases (each raises on any failure, so the exit code is not 0):
      kernel's time per launch at that shape, and at phase 8's longest
      forward (B=1, S=43), against its plain version (blockwise),
      scaled_dot_product_attention, its bound and the floor of the split-P
-     design's own tensor work (1.5x the function's);
+     design's own tensor work (1.5x the function's), and at
+     recurrentgemma-9b's serve prefill (with SDPA given the window as a
+     boolean mask, the kernel it ran named, and SDPA's causal path);
   8. the paper's MCTS with the LM as its simulation at full width, bf16:
      TreeParallelMCTS(X=256, F=6, D=4, p=16) over LMTreeEnv and
      LMContinuationBackend, two run_step() calls (the second re-rooting),
@@ -136,7 +140,28 @@ Phases (each raises on any failure, so the exit code is not 0):
      equal to a numpy-oracle client's, cache off equal to cache on with
      cache hits, every forward 64 rows, K=8 equal to K=1; (e) the stream
      with overlap=True, two gangs, held to an overlap oracle, and three
-     alternating overlap / lock-step pairs for the ratio of their speeds.
+     alternating overlap / lock-step pairs for the ratio of their speeds;
+ 13. the recurrent LM families at full width and depth: (a) mamba2-2.7b
+     in an f32 copy (TF32 off), 4 prompts of 512 tokens prefilled by the
+     chunked SSD scan and 32 greedy tokens decoded by the recurrence,
+     every row within 2e-3 of the teacher-forced forward; (b) the serve
+     entry point at mamba2-2.7b and recurrentgemma-9b, bf16, 16 prompts
+     of 2,048 tokens then 64 tokens: prefill ms, decode tokens/s, peak
+     memory, one flash launch per local-attention layer (12 for
+     recurrentgemma, none for mamba2), and one SSD and one RG-LRU layer's
+     prefill and decode step timed with their top kernels; (c)
+     recurrentgemma-9b in an f32 copy, 4 prompts of 2,048 tokens: the
+     flash prefill within 1e-3 of the blockwise prefill (argmax
+     identical), then 32 decode tokens past the
+     ring buffer's wrap, every row within 2e-3 of the teacher-forced
+     forward; (d) TreeParallelMCTS(X=256, F=6, D=4, p=16) over LMTreeEnv
+     and LMContinuationBackend(pool_size=16) at mamba2-2.7b, bf16, one
+     run_step() held superstep by superstep to the numpy oracle
+     replaying the recorded env steps and values, then where its
+     superstep goes; (e) a ContinuousBatcher of 2 slots over both archs
+     at SMOKE width, f32: every request's log-probs within 1e-4 of a
+     fresh batcher's that serves it alone, and moved by more with the
+     recurrent leaves' clearing patched out.
 
 It prints JSON lines; the line before the last is {"kernels": [...]} and
 the last is {"ok": true, "device": {...}}.  It imports nothing of the JAX
@@ -696,6 +721,7 @@ FULL_WIDTH_HEADS = [   # arch, H, Hkv, head_dim, windows (configs/*.py)
     ("llama3.2-1b", 32, 8, 64, (None,)),
     ("starcoder2-3b", 24, 2, 128, (None,)),
     ("gemma3-12b", 16, 8, 256, (1024, None)),
+    ("recurrentgemma-9b", 16, 1, 256, (2048,)),
 ]
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # test_flash_kernel.py:47
 LLAMA = "llama3.2-1b"
@@ -709,6 +735,12 @@ SERVE_HEADS = (16, 2048, 32, 8, 64)   # the serve prefill's B, S, H, Hkv, dh
 MAIN_PATH_SHAPES = ([(1, S, S, 32, 8, 64) for S in (2, 3, 7, 43)]
                     + [(4, 512, 512, 32, 8, 64),
                        (16, 2048, 2048, 32, 8, 64)])
+MAMBA, RGEMMA = "mamba2-2.7b", "recurrentgemma-9b"
+RG_WINDOW = 2048
+# recurrentgemma-9b's local attention (MQA, dh=256, window 2048) at the
+# serve prefill (phase 13) and phase 13's f32 prefill
+RG_SHAPES = [(16, 2048, 2048, 16, 1, 256), (4, 2048, 2048, 16, 1, 256)]
+RG_SERVE_HEADS = (16, 2048, 16, 1, 256)   # B, S, H, Hkv, dh
 
 
 def randn(gen, shape, dtype):
@@ -725,6 +757,7 @@ def phase_flash() -> int:
     cases += [((1, 2048, 2048, H, Hkv, dh), w, arch)
               for arch, H, Hkv, dh, windows in FULL_WIDTH_HEADS for w in windows]
     cases += [(s, None, LLAMA + " main path") for s in MAIN_PATH_SHAPES]
+    cases += [(s, RG_WINDOW, RGEMMA + " phase 13") for s in RG_SHAPES]
     bad, worst, n, worst_share = [], 0.0, 0, 0.0
     for shape, window, arch in cases:
         B, Sq, Sk, H, Hkv, dh = shape
@@ -858,15 +891,16 @@ def phase_serve() -> int:
 PHASE8_HEADS = (1, 43, 32, 8, 64)   # phase 8's longest B=1 forward
 
 
-def flash_timing(shape, seed) -> dict:
-    """The flash kernel at one llama3.2-1b bf16 causal shape (B, S, H,
-    Hkv, dh): ms per launch from CUDA events and device ms from the
-    profiler, against the plain version (blockwise),
-    scaled_dot_product_attention and the bound (the function's work).  Its
-    flash_row line adds the bytes and operations and the floor of the
-    split-P design's tensor work (1.5x the function's); the returned row,
-    which goes on the kernels line, holds the measured times and the bound
-    only."""
+def flash_timing(shape, seed, window=None) -> dict:
+    """The flash kernel at one bf16 causal shape (B, S, H, Hkv, dh), with
+    an optional sliding window: ms per launch from CUDA events and device
+    ms from the profiler, against the plain version (blockwise),
+    scaled_dot_product_attention (with the window as a boolean mask where
+    there is one, and the name of the kernel it ran, which names its
+    backend) and the bound (the function's work).  Its flash_row line adds
+    the bytes and operations and the floor of the split-P design's tensor
+    work (1.5x the function's); the returned row, which goes on the
+    kernels line, holds the measured times and the bound only."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as FA
@@ -877,28 +911,42 @@ def flash_timing(shape, seed) -> dict:
     q = randn(gen, (B, S, H, dh), torch.bfloat16)
     k, v = (randn(gen, (B, S, Hkv, dh), torch.bfloat16) for _ in range(2))
     none = lambda: None
+    run = lambda: FA.flash_attention(q, k, v, causal=True, window=window)
     n0 = FA.launches
-    ms = cuda_time_ms(lambda: FA.flash_attention(q, k, v, causal=True), none, 20)
-    dev = device_ms(lambda: FA.flash_attention(q, k, v, causal=True), none, 10,
-                    "flash_fwd_wgmma")
+    ms = cuda_time_ms(run, none, 20)
+    dev = device_ms(run, none, 10, "flash_fwd_wgmma")
     FA.launches = n0
-    plain = cuda_time_ms(lambda: blockwise_attention(q, k, v, causal=True),
+    plain = cuda_time_ms(lambda: blockwise_attention(q, k, v, causal=True,
+                                                     window=window),
                          none, 3, warm=1)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), none, 20)
-    lib_dev = wall_and_device_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), 10)["device_ms"]
-    pairs = S * (S + 1) // 2                      # causal (query, key) pairs
+    pos = torch.arange(S, device=DEV)
+    mask = None
+    if window is not None:
+        mask = ((pos[None, :] <= pos[:, None])
+                & (pos[None, :] > pos[:, None] - window))
+    sdpa = lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, is_causal=mask is None, enable_gqa=True)
+    lib = cuda_time_ms(sdpa, none, 20)
+    lib_trace = wall_and_device_ms(sdpa, 10)
+    # (query, key) pairs inside the causal window
+    qpos = np.arange(S)
+    pairs = int(np.minimum(qpos + 1, window or S).sum())
     ops = 4 * B * H * dh * pairs
     nbytes = 2 * (2 * B * S * H * dh + 2 * B * S * Hkv * dh)
     t_ops = 1e3 * ops / H100_BF16_OPS_PER_S
     t_bytes = 1e3 * nbytes / H100_HBM_BYTES_PER_S
     split_floor = 1.5 * t_ops
     row = dict(ms=ms, device_ms=dev, plain_ms=plain, library_ms=lib,
-               library_device_ms=lib_dev, bound_ms=max(t_ops, t_bytes),
+               library_device_ms=lib_trace["device_ms"],
+               library_kernel=lib_trace["top"][0][0] if lib_trace["top"] else None,
+               bound_ms=max(t_ops, t_bytes),
                bound_by="operations" if t_ops >= t_bytes else "bytes",
-               shape=f"B={B} S={S} H={H} Hkv={Hkv} dh={dh} bf16 causal")
+               shape=f"B={B} S={S} H={H} Hkv={Hkv} dh={dh} bf16 causal"
+                     + (f" window={window}" if window else ""))
+    if mask is not None:     # the window covers S here: SDPA's causal path
+        row["library_causal_ms"] = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), none, 20)
     # the split-P floor is the design's own, not the function's bound: it
     # stays on this line and off the kernels line
     emit(phase="flash_row", **row, bytes=nbytes, ops=ops,
@@ -917,7 +965,8 @@ def flash_row() -> dict:
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:88",
         launches=None, max_abs_err=AGREEMENT["flash_attention"][1], **serve,
-        at_phase8_shape=flash_timing(PHASE8_HEADS, 3))
+        at_phase8_shape=flash_timing(PHASE8_HEADS, 3),
+        at_recurrentgemma_serve=flash_timing(RG_SERVE_HEADS, 4, window=RG_WINDOW))
 
 
 # ---------------------------------------------------------------------------
@@ -991,7 +1040,15 @@ def logged(m) -> list:
     return log
 
 
-def phase_mcts_lm():
+def attn_layers(cfg) -> int:
+    return sum(spec.kind == "attn" for spec in cfg.layer_specs())
+
+
+def phase_mcts_lm(arch=LLAMA, reuses=(False, True)):
+    """TreeParallelMCTS (cuda) over LMTreeEnv + LMContinuationBackend at
+    arch's full width, bf16, one run_step() per entry of `reuses`, held
+    superstep by superstep to the numpy oracle replaying the recorded env
+    steps and values.  Returns the kernels' launches."""
     from repro_torch import configs
     from repro_torch.core import TreeConfig, TreeParallelMCTS
     from repro_torch.core.mcts import StepStats
@@ -1001,7 +1058,7 @@ def phase_mcts_lm():
     from repro_torch.obs import MetricsRegistry
     from repro_torch.sim import LMContinuationBackend, LMTreeEnv
 
-    cfg = configs.get_config(LLAMA)
+    cfg = configs.get_config(arch)
     params = lm.init_params(cfg, torch.Generator(device=DEV).manual_seed(0), DEV)
     tree = TreeConfig(X=256, F=6, D=4)
     env = RecordingEnv(LMTreeEnv(cfg, params, fanout=6, horizon=5))
@@ -1013,7 +1070,7 @@ def phase_mcts_lm():
     log_c = logged(mc)
     FA.launches = uct_select.launches = uct_backup.launches = 0
     moves, t0 = [], time.perf_counter()
-    for reuse in (False, True):
+    for reuse in reuses:
         mc.stats = StepStats()
         t1 = time.perf_counter()
         a, _, _ = mc.run_step(reuse_subtree=reuse)
@@ -1021,7 +1078,8 @@ def phase_mcts_lm():
         s, n = mc.stats, max(mc.stats.supersteps, 1)
         tok = int(mc.env.env.tokens(mc.root_state)[-1])
         moves.append(int(a))
-        emit(phase="mcts_lm", reuse_subtree=reuse, action=int(a), token=tok,
+        emit(phase="mcts_lm", arch=cfg.name, reuse_subtree=reuse,
+             action=int(a), token=tok,
              supersteps=s.supersteps, wall_s=wall,
              supersteps_per_s=s.supersteps / wall,
              ms_per_superstep={k: 1e3 * getattr(s, "t_" + k) / n for k in (
@@ -1040,8 +1098,7 @@ def phase_mcts_lm():
     mr = TreeParallelMCTS(tree, ReplayEnv(env), ReplayBackend(sim), p=16,
                           executor="reference", expansion="loop", device=DEV)
     log_r = logged(mr)
-    ref_moves = [int(mr.run_step(reuse_subtree=reuse)[0])
-                 for reuse in (False, True)]
+    ref_moves = [int(mr.run_step(reuse_subtree=reuse)[0]) for reuse in reuses]
     if len(log_c) != len(log_r):
         raise AssertionError(f"{len(log_c)} supersteps against the oracle's "
                              f"{len(log_r)}")
@@ -1055,14 +1112,15 @@ def phase_mcts_lm():
     if moves != ref_moves:
         raise AssertionError(f"actions {moves} against the oracle's {ref_moves}")
     steps = len(log_c)
-    if launches["flash_attention"] != cfg.n_layers * forwards:
+    if launches["flash_attention"] != attn_layers(cfg) * forwards:
         raise AssertionError(f"flash launched {launches['flash_attention']} "
                              f"times for {forwards} full forwards")
     for name in ("uct_select", "uct_backup"):
-        if launches[name] != steps:
+        if launches[name] != steps or steps == 0:
             raise AssertionError(f"{name} launched {launches[name]} times in "
                                  f"{steps} supersteps")
-    emit(phase="mcts_lm", identical=True, supersteps=steps, moves=moves,
+    emit(phase="mcts_lm", arch=cfg.name, identical=True, supersteps=steps,
+         moves=moves,
          tokens=mc.env.env.tokens(mc.root_state).tolist(), launches=launches,
          full_forwards=forwards, env_steps=env.steps, admissions=admitted,
          one_token_admissions=one_token,
@@ -1124,7 +1182,8 @@ def phase_lm_costs(cfg, params, env, state):
         posv = torch.full((16,), pos, dtype=torch.int32, device=DEV)
         out[name] = wall_and_device_ms(lambda: decode(params, caches, tok, posv), 10)
     out["top_actions"] = wall_and_device_ms(lambda: env.top_actions(state), 10)
-    emit(phase="lm_costs", state_len=int(state[0]), **host, **out)
+    emit(phase="lm_costs", arch=cfg.name, state_len=int(state[0]), **host,
+         **out)
 
 
 # ---------------------------------------------------------------------------
@@ -2494,6 +2553,255 @@ def phase_gomoku() -> dict:
             "device_ms": timed["window"]["kernel_device_ms"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the recurrent LM families (mamba2-2.7b SSD, recurrentgemma-9b)
+# ---------------------------------------------------------------------------
+
+DECODE_TOL = 2e-3     # tests/test_models_smoke.py:140-160: decode vs forward
+PREFILL_TOL = 1e-3    # phase 6's bound: flash vs blockwise prefill, f32
+REUSE_TOL = 1e-4      # a reused slot's log-probs against a fresh batcher's
+RECURRENT_SERVE = dict(batch=16, prefill=2048, tokens=64)
+
+
+def decode_rows(cfg, params, tokens, n_new, impl):
+    """Prefill `tokens` with `impl`, then n_new greedy decode steps;
+    returns (the prefill's and each step's logits [B, n_new + 1, V], the
+    prompt and the generated tokens [B, S + n_new])."""
+    from repro_torch.models import lm, steps
+
+    B, S = tokens.shape
+    caches = lm.init_caches(cfg, B, S + n_new + 8, DEV)
+    lg, caches = steps.make_prefill_step(cfg, impl=impl)(params, tokens, caches)
+    decode = steps.make_decode_step(cfg, impl=impl)
+    rows, seq = [lg], [tokens]
+    positions = torch.arange(S, S + n_new, device=DEV)
+    for i in range(n_new):
+        seq.append(torch.argmax(rows[-1], -1)[:, None])
+        lg, caches = decode(params, caches, seq[-1], positions[i])
+        rows.append(lg)
+    return torch.stack(rows, 1), torch.cat(seq, 1)
+
+
+def forward_rows(cfg, params, seq, start: int, impl):
+    """The teacher-forced full forward over seq, unembedded from row
+    `start` on (no [B, S, V] tensor)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+
+    x = lm.hidden_states(cfg, params, seq, impl=impl)
+    return L.unembed(cfg, params["embed"], x[:, start:])
+
+
+def against_forward(label, cfg, got, want, tol) -> dict:
+    """Each row of got within tol (atol and rtol) of want's, or raise."""
+    d = (got - want).abs()
+    share = float((d / (tol + tol * want.abs())).max())
+    out = dict(max_abs_logit_diff=float(d.max()),
+               prefill_row_max_abs_diff=float(d[:, 0].max()),
+               tol=tol, worst_tol_share=share,
+               argmax_agreement=float((got.argmax(-1) == want.argmax(-1))
+                                      .float().mean()))
+    if not bool(torch.isfinite(got).all()) or share > 1.0:
+        raise AssertionError(f"{label} {cfg.name}: decode rows differ from the "
+                             f"teacher-forced forward: {out}")
+    return out
+
+
+def recurrent_decode():
+    """(a) mamba2-2.7b at full width in an f32 copy (TF32 off): 4 prompts
+    of 512 tokens prefilled (the chunked scan), 32 greedy decode tokens
+    (the recurrence); the prefill's last logits and every step's against
+    the teacher-forced forward, within 2e-3."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(configs.get_config(MAMBA), dtype="float32")
+    params = lm.init_params(cfg, torch.Generator(device=DEV).manual_seed(0), DEV)
+    tokens = torch.randint(0, cfg.vocab, (4, 512), device=DEV,
+                           generator=torch.Generator(device=DEV).manual_seed(1))
+    t0 = time.perf_counter()
+    got, seq = decode_rows(cfg, params, tokens, 32, "blockwise")
+    want = forward_rows(cfg, params, seq, 511, "blockwise")
+    check = against_forward("(a)", cfg, got, want, DECODE_TOL)
+    emit(phase="recurrent_decode", arch=cfg.name, dtype="float32", tf32=False,
+         batch=4, prompt=512, decode_tokens=32, **check,
+         seconds=time.perf_counter() - t0)
+    del params
+
+
+def recurrent_serve() -> dict:
+    """(b) the serve entry point at both archs, bf16, 16 prompts of 2,048
+    tokens then 64 decode tokens (a warm run, then the timed one): prefill
+    ms, decode tokens/s, peak memory, and the flash kernel's launches in
+    the timed run (one per local-attention layer)."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import serve
+
+    launches = {}
+    for arch in (MAMBA, RGEMMA):
+        cfg = configs.get_config(arch)
+        argv = ["--arch", arch] + [f"--{k}={v}" for k, v in RECURRENT_SERVE.items()]
+        B, T = RECURRENT_SERVE["batch"], RECURRENT_SERVE["tokens"]
+        serve.main(argv)                   # warm: cuBLAS, allocator
+        FA.launches = 0
+        out = serve.main(argv)
+        launches[arch] = FA.launches
+        toks = out["tokens"]
+        if launches[arch] != attn_layers(cfg):
+            raise AssertionError(f"{arch}: serve prefill launched flash "
+                                 f"{launches[arch]} times, not "
+                                 f"{attn_layers(cfg)}")
+        if toks.shape != (B, T + 1) or toks.min() < 0 \
+                or toks.max() >= cfg.padded_vocab:
+            raise AssertionError(f"{arch}: serve tokens out of shape or range")
+        emit(phase="recurrent_serve", arch=cfg.name, argv=" ".join(argv),
+             device=out["device"], prefill_ms=1e3 * out["prefill_s"],
+             decode_tokens_per_s=B * T / out["decode_s"],
+             req_per_s=out["req_per_s"], peak_gib=out["peak_bytes"] / 2**30,
+             flash_launches=launches[arch], attn_layers=attn_layers(cfg))
+    return launches
+
+
+def recurrent_layer_costs():
+    """Where (b)'s time goes: one SSD layer's mixer (mamba2-2.7b) and one
+    RG-LRU layer's mixer (recurrentgemma-9b), bf16 random weights, at the
+    serve prefill's shape (16 x 2,048) and for one decode step from its
+    cache: ms per call on the host's clock, device ms, busy share and the
+    top kernels (torch.profiler)."""
+    from repro_torch import configs
+    from repro_torch.models import layers as L
+    from repro_torch.models import rglru, ssd
+
+    for arch, mixer, init, init_cache, fwd in (
+            (MAMBA, "ssd", ssd.init_ssd, ssd.init_ssd_cache, ssd.ssd_forward),
+            (RGEMMA, "rglru", rglru.init_rglru, rglru.init_rglru_cache,
+             rglru.rglru_forward)):
+        cfg = configs.get_config(arch)
+        p = init(cfg, torch.Generator(device=DEV).manual_seed(0))
+        gen = torch.Generator(device=DEV).manual_seed(1)
+        B, S = RECURRENT_SERVE["batch"], RECURRENT_SERVE["prefill"]
+        u = randn(gen, (B, S, cfg.d_model), L.dt(cfg))
+        cache = init_cache(cfg, B, DEV)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        prefill = wall_and_device_ms(lambda: fwd(cfg, p, u, None), 3)
+        transient = (torch.cuda.max_memory_allocated() - base) / 2**30
+        decode = wall_and_device_ms(lambda: fwd(cfg, p, u[:, :1], cache), 10)
+        emit(phase="recurrent_layer", arch=cfg.name, mixer=mixer,
+             shape=f"B={B} S={S} {cfg.dtype}", prefill=prefill,
+             prefill_transient_gib=transient, decode_step=decode)
+        del p, u, cache
+
+
+def recurrent_prefill() -> int:
+    """(c) recurrentgemma-9b at full width and depth in an f32 copy (TF32
+    off), 4 prompts of 2,048 tokens (the window's length): the flash
+    prefill's last logits against the blockwise prefill's within 1e-3,
+    then 32 decode tokens past the window's edge (the ring buffer wraps)
+    and every row against the teacher-forced forward within 2e-3.
+    Returns the flash launches of the flash prefill."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import lm, steps
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(configs.get_config(RGEMMA), dtype="float32")
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init_params(cfg, torch.Generator(device=DEV).manual_seed(0), DEV)
+    tokens = torch.randint(0, cfg.vocab, (4, 2048), device=DEV,
+                           generator=torch.Generator(device=DEV).manual_seed(1))
+    t0 = time.perf_counter()
+    FA.launches = 0
+    got, seq = decode_rows(cfg, params, tokens, 32, "flash")
+    launches = FA.launches
+    caches = lm.init_caches(cfg, 4, 2048 + 8, DEV)
+    lb, _ = steps.make_prefill_step(cfg, impl="blockwise")(params, tokens, caches)
+    del caches
+    d = float((got[:, 0] - lb).abs().max())
+    agree = float((got[:, 0].argmax(-1) == lb.argmax(-1)).float().mean())
+    want = forward_rows(cfg, params, seq, 2047, "blockwise")
+    check = against_forward("(c)", cfg, got, want, DECODE_TOL)
+    emit(phase="recurrent_prefill", arch=cfg.name, dtype="float32", tf32=False,
+         batch=4, prompt=2048, depth=cfg.n_layers, flash_launches=launches,
+         flash_vs_blockwise_max_abs_diff=d, flash_vs_blockwise_argmax=agree,
+         decode_tokens=32, decode_vs_forward=check,
+         peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+         seconds=time.perf_counter() - t0)
+    if launches != attn_layers(cfg):
+        raise AssertionError(f"flash launched {launches} times in one prefill "
+                             f"of {attn_layers(cfg)} attention layers")
+    if d > PREFILL_TOL or agree != 1.0:
+        raise AssertionError(f"f32 flash prefill differs from blockwise: max "
+                             f"|d logits| {d}, argmax agreement {agree}")
+    del params
+    return launches
+
+
+def slot_reuse():
+    """(e) a ContinuousBatcher of 2 slots over both archs at SMOKE width,
+    f32 with TF32 off, 8 requests: each request's log-probs within 1e-4
+    of a fresh batcher's that serves it alone; with the recurrent leaves'
+    clearing patched out, the reused slots' log-probs move by more."""
+    from repro_torch import configs
+    from repro_torch.envs.policy_net import exact_f32
+    from repro_torch.models import lm
+    from repro_torch.serving import ContinuousBatcher, Request
+    from repro_torch.serving import batcher
+
+    for arch in (MAMBA, RGEMMA):
+        cfg = configs.get_config(arch, smoke=True)
+        params = lm.init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                                DEV)
+        rng = np.random.RandomState(9)
+        prompts = [rng.randint(1, cfg.vocab, size=2 + 3 * i % 7).astype(np.int32)
+                   for i in range(8)]
+
+        def serve(batch):
+            b = ContinuousBatcher(cfg, params, pool_size=2, max_seq=48,
+                                  impl="flash", record_logprobs=True)
+            for i, p in batch:
+                b.submit(Request(uid=i, prompt=p, max_new_tokens=5))
+            return {r.uid: np.asarray(r.logprobs) for r in b.run(max_steps=400)}
+
+        with exact_f32():
+            pooled = serve(list(enumerate(prompts)))
+            alone = {i: serve([(i, p)])[i] for i, p in enumerate(prompts)}
+            clear = batcher._clear_recurrent
+            batcher._clear_recurrent = lambda row: None
+            try:
+                dirty = serve(list(enumerate(prompts)))
+            finally:
+                batcher._clear_recurrent = clear
+        worst = max(float(np.abs(pooled[i] - alone[i]).max()) for i in alone)
+        moved = max(float(np.abs(dirty[i] - alone[i]).max()) for i in alone)
+        emit(phase="slot_reuse", arch=cfg.name, pool=2, requests=len(prompts),
+             max_abs_logprob_diff=worst, tol=REUSE_TOL,
+             dirty_max_abs_logprob_diff=moved)
+        if worst > REUSE_TOL:
+            raise AssertionError(f"{arch}: a reused slot's log-probs differ "
+                                 f"from a fresh batcher's by {worst}")
+        if moved <= REUSE_TOL:
+            raise AssertionError(f"{arch}: left dirty, the recurrent state "
+                                 f"moved no log-prob (the check is vacuous)")
+
+
+def phase_recurrent() -> dict:
+    """Phase 13: mamba2-2.7b and recurrentgemma-9b at full width.  Returns
+    the kernels' launches on its paths."""
+    t_phase = time.perf_counter()
+    recurrent_decode()
+    serve_launches = recurrent_serve()
+    recurrent_layer_costs()
+    prefill_launches = recurrent_prefill()
+    mcts = phase_mcts_lm(MAMBA, reuses=(False,))
+    slot_reuse()
+    emit(phase="recurrent", seconds=time.perf_counter() - t_phase)
+    return {"serve": serve_launches, "prefill_f32": prefill_launches,
+            "mcts": mcts}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2530,6 +2838,11 @@ def main() -> int:
     fused_launches = phase_fused(serving["want"])
     overlap_launches = phase_overlap(serving["want"])
     gomoku = phase_gomoku()
+    recurrent = phase_recurrent()
+    kernels[2]["launches_recurrentgemma"] = {
+        "serve_prefill": recurrent["serve"][RGEMMA],
+        "f32_prefill": recurrent["prefill_f32"]}
+    kernels[2]["launches_mamba2_mcts"] = recurrent["mcts"]["flash_attention"]
     for row in kernels[:2]:
         row["launches_serving"] = serving["launches"][row["name"]]
         row["launches_fused"] = {f"K{K}": fused_launches[K][row["name"]]
@@ -2544,6 +2857,7 @@ def main() -> int:
             "main", "run_step", "serving", "overlap")}
         row["gomoku_path_device_ms"] = gomoku["device_ms"].get(
             row["name"] + "_kernel")
+        row["launches_mamba2_mcts"] = recurrent["mcts"][row["name"]]
     emit(phase="total", seconds=round(time.perf_counter() - t_start, 3))
     print(gpu, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

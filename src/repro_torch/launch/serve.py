@@ -55,6 +55,8 @@ def main(argv=None) -> dict:
         0, cfg.vocab, (args.batch, args.prefill)), device=device)
 
     _sync(device)
+    if device.type == "cuda":   # the peak over prefill and decode
+        torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
     logits, caches = prefill(params, tokens, caches)
     _sync(device)
@@ -72,12 +74,15 @@ def main(argv=None) -> dict:
     t2 = time.perf_counter()
 
     n_req = args.batch * args.tokens
-    name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    cuda = device.type == "cuda"
+    name = torch.cuda.get_device_name(device) if cuda else "cpu"
+    peak = torch.cuda.max_memory_allocated(device) if cuda else None
     print(f"[serve] {cfg.name}: prefill {args.batch}x{args.prefill} in "
           f"{t1-t0:.3f}s; {n_req} decode requests in {t2-t1:.3f}s "
-          f"=> {n_req/(t2-t1):,.0f} req/s on {name}", flush=True)
+          f"=> {n_req/(t2-t1):,.0f} req/s on {name}"
+          + (f"; peak {peak / 2**30:.2f} GiB" if cuda else ""), flush=True)
     return {"device": name, "prefill_s": t1 - t0, "decode_s": t2 - t1,
-            "req_per_s": n_req / (t2 - t1),
+            "req_per_s": n_req / (t2 - t1), "peak_bytes": peak,
             "tokens": torch.cat(out, 1).cpu().numpy()}
 
 

@@ -5,7 +5,7 @@ Params are plain dicts of tensors with the JAX package's shapes
 both packages unchanged.  The JAX package's logical-axes half (``axes``
 for sharding) is dropped: the port runs on one device.  Every ``init_*``
 draws from a ``torch.Generator`` and allocates on that generator's
-device.  ``causal_conv1d`` waits for the SSD / RG-LRU slice.
+device.
 """
 
 from __future__ import annotations
@@ -132,3 +132,37 @@ def rope(x, positions, theta: float):
     y1 = x1 * c - x2 * s
     y2 = x2 * c + x1 * s
     return torch.cat([y1, y2], dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------- conv1d
+
+def init_conv1d(gen, width: int, channels: int) -> dict:
+    return {"w": normal(gen, (width, channels), torch.float32, 0.1),
+            "b": torch.zeros(channels, dtype=torch.float32, device=gen.device)}
+
+
+def causal_conv1d(p, x, state=None):
+    """Depthwise causal conv.  x: [B, S, C]; state: [B, width-1, C]
+    trailing context (decode / prefill over a cache) or None (zeros).
+    Returns (y, new_state): the JAX package's shifted sum over the taps in
+    tap order, in x's dtype, so a bf16 run rounds as it does."""
+    w = p["w"].to(x.dtype)  # [W, C]
+    width = w.shape[0]
+    if state is None:
+        pad = x.new_zeros((x.shape[0], width - 1) + tuple(x.shape[2:]))
+    else:
+        pad = state.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)  # [B, S+W-1, C]
+    S = x.shape[1]
+    y = xp[:, 0:S] * w[0]
+    for i in range(1, width):
+        y = y + xp[:, i:i + S] * w[i]
+    y = y + p["b"].to(x.dtype)
+    new_state = xp[:, -(width - 1):] if width > 1 else pad
+    return y, new_state
+
+
+def softplus(x):
+    """jax.nn.softplus: logaddexp(x, 0) at every x (F.softplus returns x
+    itself above its threshold of 20)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))

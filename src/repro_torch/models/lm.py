@@ -1,5 +1,5 @@
-"""Model assembly on torch: the dense decoder LM (the dense GQA path of
-repro.models.lm).
+"""Model assembly on torch: the decoder LM of repro.models.lm for the
+dense, SSD and RG-LRU families.
 
 Parameters are a plain dict with the JAX package's layout: ``embed``
 (``tok [V, d]`` f32, ``out`` when untied), ``g{i}`` for each
@@ -7,11 +7,15 @@ Parameters are a plain dict with the JAX package's layout: ``embed``
 dicts whose tensors are stacked ``[repeats, ...]`` — and ``final_norm``.
 The layer loop is a Python loop over groups, repeats and positions (the
 JAX package's lax.scan); each layer reads views ``[r]`` of the stacks.
-Caches have the same stacked layout and are written in place.
+Caches have the same stacked layout and are written in place: ``k``/``v``
+for attention, ``conv``/``state`` for SSD, ``conv``/``h`` for RG-LRU
+(``RECURRENT_LEAVES`` are the ones a new sequence must start from zero).
 
-Covered: dense GQA stacks (llama / starcoder2 / granite) and local:global
-patterns (gemma3).  MoE, SSD, RG-LRU, MLA, the VLM prefix, the encoder and
-the MTP head raise ``NotImplementedError`` (ROADMAP.md queue A item 8).
+Covered: dense GQA stacks (llama / starcoder2 / granite), local:global
+patterns (gemma3), SSD stacks (mamba2) and RG-LRU with local attention
+(recurrentgemma).  MoE, MLA, the VLM prefix, the encoder and its
+cross-attention and the MTP head raise ``NotImplementedError`` (ROADMAP.md
+queue A item 8).
 
 ``from_jax_params`` carries the JAX package's ``init_params`` tree (as
 numpy) across, bf16 leaves included, bit for bit.
@@ -24,7 +28,12 @@ import torch
 
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import rglru as R
+from repro_torch.models import ssd as SSD
 from repro_torch.models.config import LayerSpec, ModelConfig
+
+KINDS = ("attn", "ssd", "rglru")
+RECURRENT_LEAVES = ("conv", "state", "h")
 
 
 def _check_supported(cfg: ModelConfig):
@@ -39,20 +48,26 @@ def _check_supported(cfg: ModelConfig):
         missing.append("vlm_patches")
     for pattern, _ in cfg.groups:
         for spec in pattern:
-            if spec.kind != "attn" or spec.mlp not in ("dense", "none") \
+            if spec.kind not in KINDS or spec.mlp not in ("dense", "none") \
                     or spec.cross_attn:
                 missing.append(f"{spec}")
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {sorted(set(missing))} not ported yet (the port has "
-            f"the dense GQA path; ROADMAP.md queue A item 8)")
+            f"dense GQA, SSD and RG-LRU; MoE, MLA, the VLM prefix, the encoder "
+            f"and MTP are ROADMAP.md queue A item 8)")
 
 
 # ------------------------------------------------------------------ init
 
 def _init_layer(cfg, spec: LayerSpec, gen) -> dict:
-    p = {"norm_in": L.init_norm(cfg, gen.device),
-         "mix": A.init_attn(cfg, gen, spec)}
+    p = {"norm_in": L.init_norm(cfg, gen.device)}
+    if spec.kind == "attn":
+        p["mix"] = A.init_attn(cfg, gen, spec)
+    elif spec.kind == "ssd":
+        p["mix"] = SSD.init_ssd(cfg, gen)
+    else:
+        p["mix"] = R.init_rglru(cfg, gen)
     if spec.mlp == "dense":
         p["norm_mlp"] = L.init_norm(cfg, gen.device)
         p["mlp"] = L.init_mlp(cfg, gen)
@@ -113,7 +128,13 @@ def _at(tree, r: int):
 
 def _block(cfg, spec: LayerSpec, p, x, positions, cache, impl):
     h = L.norm(cfg, p["norm_in"], x)
-    mix, cache = A.attn_forward(cfg, spec, p["mix"], h, positions, cache, impl)
+    if spec.kind == "attn":
+        mix, cache = A.attn_forward(cfg, spec, p["mix"], h, positions, cache,
+                                    impl)
+    elif spec.kind == "ssd":
+        mix, cache = SSD.ssd_forward(cfg, p["mix"], h, cache)
+    else:
+        mix, cache = R.rglru_forward(cfg, p["mix"], h, cache)
     # the residual stream stays in cfg.dtype (attention upcasts to f32)
     x = x + mix.to(x.dtype)
     if spec.mlp == "dense":
@@ -160,7 +181,15 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int, device) -> dict:
     caches = {}
     for gi, (pattern, repeats) in enumerate(cfg.groups):
         caches[f"g{gi}"] = [
-            _stack([A.init_cache(cfg, spec, batch, max_seq, device)
+            _stack([_init_cache(cfg, spec, batch, max_seq, device)
                     for _ in range(repeats)])
             for spec in pattern]
     return caches
+
+
+def _init_cache(cfg, spec: LayerSpec, batch, max_seq, device) -> dict:
+    if spec.kind == "attn":
+        return A.init_cache(cfg, spec, batch, max_seq, device)
+    if spec.kind == "ssd":
+        return SSD.init_ssd_cache(cfg, batch, device)
+    return R.init_rglru_cache(cfg, batch, device)

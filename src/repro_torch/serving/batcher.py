@@ -17,9 +17,12 @@ Admission prefills the single prompt (B=1) straight into the pool
 cache's slot row, in place: the row is a view of the pool's stacked
 cache, so the prefill's cache writes land in the pool.  This is the
 counterpart of the JAX package's prefill into a zeroed scratch cache and
-splice (repro/serving/batcher.py:120-124).  The slot's old entries past
-the new prompt stay behind, but decode masks every slot past the row's
-position, so they are never read.
+splice (repro/serving/batcher.py:120-124).  The row's recurrent leaves
+(SSD and RG-LRU: the conv context and the state, which a prefill starts
+from) are zeroed first, or a slot's next occupant would start from the
+last one's state.  Its old attention entries past the new prompt stay
+behind, but decode masks every slot past the row's position, so they are
+never read.
 """
 
 from __future__ import annotations
@@ -55,11 +58,22 @@ def _logprob(logits_row: np.ndarray, tok: int) -> float:
 
 
 def _slot_view(caches: dict, slot: int) -> dict:
-    """The pool cache's row `slot` as [R, 1, ...] views, with a scratch
-    `pos` (the pool's own is the decode's, as in the JAX package)."""
-    return {g: [{"k": c["k"][:, slot:slot + 1], "v": c["v"][:, slot:slot + 1],
-                 "pos": torch.zeros_like(c["pos"])} for c in per_pos]
+    """The pool cache's row `slot` as [R, 1, ...] views of every leaf
+    (k/v, conv/state, conv/h), with a scratch `pos` (the pool's own is the
+    decode's, as in the JAX package)."""
+    return {g: [{name: (torch.zeros_like(t) if name == "pos"
+                        else t[:, slot:slot + 1]) for name, t in c.items()}
+                for c in per_pos]
             for g, per_pos in caches.items()}
+
+
+def _clear_recurrent(row: dict) -> None:
+    """Zero a row view's recurrent leaves: a new sequence starts there."""
+    for per_pos in row.values():
+        for c in per_pos:
+            for name in lm.RECURRENT_LEAVES:
+                if name in c:
+                    c[name].zero_()
 
 
 class ContinuousBatcher:
@@ -122,8 +136,9 @@ class ContinuousBatcher:
             req = self.queue.pop(0)
             prompt = torch.as_tensor(np.asarray(req.prompt, np.int64),
                                      device=self.device)[None]
-            logits, _ = self._prefill_one(self.params, prompt,
-                                          _slot_view(self.caches, slot))
+            row = _slot_view(self.caches, slot)
+            _clear_recurrent(row)
+            logits, _ = self._prefill_one(self.params, prompt, row)
             self.slots[slot] = req
             self.pos[slot] = len(req.prompt)
             self.cur_tok[slot, 0] = int(torch.argmax(logits[0]))

@@ -9,22 +9,28 @@ repro_torch (no copy of it exists).  The rewrite:
   * the port's names stand where the JAX package's do (TorchArenaExecutor
     for JaxArenaExecutor, CudaArenaExecutor for PallasArenaExecutor, the
     executor name "cuda" for "pallas");
-  * every call of a serving entry point gets ``device="cpu"``, since the
-    port's entry points run on CUDA unless the caller asks for the CPU;
+  * every call of a serving entry point (and of ``init_caches``) gets
+    ``device="cpu"``, since the port's entry points run on CUDA unless the
+    caller asks for the CPU;
   * the weights a body builds from a JAX key come from the JAX package,
     carried into the port's layout (``REBIND``): the policy net's
     ``init_params`` is ``jax_key_init_params`` (through the port's
     ``params_from_numpy``) and the LM's ``lm.init_params`` is
     ``jax_key_lm.init_params`` (through ``from_jax_params``), so the
-    port's NN and LM legs compute the JAX package's functions;
+    port's NN and LM legs compute the JAX package's functions (the rest
+    of ``lm`` is the port's);
   * imports of the JAX package's modules that the port does not have
     (``JAX_ONLY``) stay on the JAX package, for the bodies that use them
     (the callers exclude those bodies);
-  * in a module listed in ``SHIMS`` (the device-twin tests of
-    tests/test_fused_dispatch.py), ``jax`` and ``jnp`` are rebound after
-    the module runs: ``jax.jit(f)`` calls f on torch tensors made from
-    its numpy arguments, and ``jnp.asarray`` / ``jnp.zeros`` make CPU
-    tensors, so a body that jits a device twin runs the port's twin.
+  * in a module listed in ``SHIMS``, ``jax`` and ``jnp`` are rebound after
+    the module runs.  In the device-twin tests of
+    tests/test_fused_dispatch.py ``jax.jit(f)`` calls f on torch tensors
+    made from its numpy arguments, and ``jnp.asarray`` / ``jnp.zeros``
+    make CPU tensors, so a body that jits a device twin runs the port's
+    twin.  In tests/test_models_smoke.py ``jax.random.randint`` draws
+    JAX's numbers into a torch tensor and the few ``jnp`` calls the bodies
+    make on tokens and logits are torch's, so a body's prefill and decode
+    run the port's steps on the JAX package's weights and tokens.
 
 ``cases(module, exclude)`` expands each remaining test function's
 ``pytest.mark.parametrize`` marks into (id, function, kwargs) cases for
@@ -53,13 +59,14 @@ VALUE_MAP = {"pallas": "cuda"}
 DEVICE_CALLS = {"SearchClient", "SearchService", "ServiceFrontend",
                 "ArenaPool", "TreeParallelMCTS", "make_arena_executor",
                 "make_intree_executor", "TorchArenaExecutor",
-                "CudaArenaExecutor", "NNSimBackend"} | set(NAME_MAP)
+                "CudaArenaExecutor", "NNSimBackend", "init_caches"} | set(NAME_MAP)
 # (JAX module, name) -> the name in this module that stands for it
 REBIND = {("repro.envs.policy_net", "init_params"): "jax_key_init_params",
           ("repro.models", "lm"): "jax_key_lm"}
 # modules of the JAX package the port does not have: host-only fault
-# bookkeeping (repro.distributed.fault), outside the port's slices
-JAX_ONLY = {"repro.distributed.fault"}
+# bookkeeping (repro.distributed.fault), outside the port's slices, and the
+# optimizer (repro.optim), which only the excluded training bodies use
+JAX_ONLY = {"repro.distributed.fault", "repro.optim"}
 
 
 def _to_port(name: str) -> str:
@@ -139,7 +146,17 @@ def _jax_key_lm_init_params(cfg, key) -> dict:
     return from_jax_params(cfg, jax.tree.map(np.asarray, params), "cpu")
 
 
-jax_key_lm = types.SimpleNamespace(init_params=_jax_key_lm_init_params)
+class _JaxKeyLM:
+    """repro_torch.models.lm with its init_params taking a JAX key."""
+
+    init_params = staticmethod(_jax_key_lm_init_params)
+
+    def __getattr__(self, name):
+        from repro_torch.models import lm
+        return getattr(lm, name)
+
+
+jax_key_lm = _JaxKeyLM()
 
 
 def _jit(fn):
@@ -155,7 +172,27 @@ JNP_SHIM = types.SimpleNamespace(
     asarray=lambda x: torch.as_tensor(np.asarray(x)),
     zeros=lambda shape, dtype=torch.float32: torch.zeros(shape, dtype=dtype),
     int32=torch.int32)
-SHIMS = {"test_fused_dispatch": {"jax": JAX_SHIM, "jnp": JNP_SHIM}}
+
+
+def _jax_key(seed):
+    import jax
+    return jax.random.PRNGKey(seed)
+
+
+def _jax_randint(key, shape, lo, hi):
+    import jax
+    return torch.as_tensor(np.array(jax.random.randint(key, shape, lo, hi)))
+
+
+JAX_MODELS_SHIM = types.SimpleNamespace(
+    jit=_jit, random=types.SimpleNamespace(PRNGKey=_jax_key,
+                                           randint=_jax_randint))
+JNP_MODELS_SHIM = types.SimpleNamespace(
+    asarray=lambda x: torch.as_tensor(np.asarray(x)), argmax=torch.argmax,
+    roll=torch.roll, float32=torch.float32,
+    ones=lambda shape, dtype=torch.float32: torch.ones(shape, dtype=dtype))
+SHIMS = {"test_fused_dispatch": {"jax": JAX_SHIM, "jnp": JNP_SHIM},
+         "test_models_smoke": {"jax": JAX_MODELS_SHIM, "jnp": JNP_MODELS_SHIM}}
 
 _MODULES: dict = {}
 

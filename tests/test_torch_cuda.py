@@ -20,7 +20,11 @@ The flash-attention kernel is held to its plain version at the JAX flash
 test's tolerances (f32 2e-5, bf16 2e-2); in bf16 also to the plain version
 run in f32 on the same inputs, within one bf16 rounding of the output,
 over every head dim, the LM paths' short rows, windows, non-causal
-Sq != Sk and fused-projection views; a misaligned bf16 stride raises.
+Sq != Sk, fused-projection views and recurrentgemma-9b's local MQA
+(Hkv=1, dh=256, window 2048); a misaligned bf16 stride raises.
+The SSD and RG-LRU mixers (plain torch) on the card against the CPU, at
+SMOKE width and one full-width layer, and a reused batcher slot over both
+recurrent archs against a fresh batcher.
 """
 
 import numpy as np
@@ -170,6 +174,7 @@ FLASH_CASES = [  # B, Sq, Sk, H, Hkv, dh, causal, window
     (2, 70, 130, 4, 2, 32, False, None),     # non-causal, Sq < Sk
     (1, 190, 90, 4, 1, 64, False, None),     # non-causal, Sq > Sk
     (1, 300, 520, 4, 4, 256, False, 100),
+    (1, 2048, 2048, 16, 1, 256, True, 2048),  # recurrentgemma-9b's local MQA
 ]
 
 
@@ -806,3 +811,91 @@ def test_gomoku_serving_with_simserver_matches_reference():
     assert_streams_equal(off, got)
     assert reg.get("sim_cache_hits_total").value > 0
     assert set(rows) == set(rows_off) == {32}
+
+
+# ------------------------------------------------- the recurrent LM families
+
+def mixer_on(kind, cfg, params, u, cache, device):
+    from repro_torch.models import rglru, ssd
+
+    fwd = ssd.ssd_forward if kind == "ssd" else rglru.rglru_forward
+    mv = lambda t: t.to(device)
+    p = {k: ({kk: mv(vv) for kk, vv in v.items()} if isinstance(v, dict)
+             else mv(v)) for k, v in params.items()}
+    c = None if cache is None else {k: mv(v).clone() for k, v in cache.items()}
+    y, c = fwd(cfg, p, mv(u), c)
+    return y.cpu(), None if c is None else {k: v.cpu() for k, v in c.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", ["smoke", "full"])
+@pytest.mark.parametrize("kind", ["ssd", "rglru"])
+def test_recurrent_mixer_on_card_matches_cpu(kind, width):
+    """One SSD (mamba2-2.7b) or RG-LRU (recurrentgemma-9b) layer, SMOKE
+    or full width, f32 with TF32 off: the chunked prefill (300 tokens:
+    over a chunk boundary at both widths' scan chunks) and a decode step
+    from its cache, on the card within 1e-4 of the CPU."""
+    need_cuda()
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.envs.policy_net import exact_f32
+    from repro_torch.models import rglru, ssd
+
+    arch = "mamba2-2.7b" if kind == "ssd" else "recurrentgemma-9b"
+    cfg = dataclasses.replace(configs.get_config(arch, smoke=width == "smoke"),
+                              dtype="float32")
+    if width == "full":
+        cfg = dataclasses.replace(cfg, ssd_chunk=256)
+    gen = torch.Generator().manual_seed(0)
+    params = (ssd.init_ssd if kind == "ssd" else rglru.init_rglru)(cfg, gen)
+    init_cache = ssd.init_ssd_cache if kind == "ssd" else rglru.init_rglru_cache
+    rng = np.random.RandomState(1)
+    u = torch.tensor(rng.randn(2, 300, cfg.d_model), dtype=torch.float32)
+    u1 = torch.tensor(rng.randn(2, 1, cfg.d_model), dtype=torch.float32)
+    with exact_f32():
+        for inp, cache in ((u, None), (u, init_cache(cfg, 2, "cpu"))):
+            cy, cc = mixer_on(kind, cfg, params, inp, cache, "cpu")
+            gy, gc = mixer_on(kind, cfg, params, inp, cache, "cuda")
+            torch.testing.assert_close(gy, cy, atol=1e-4, rtol=1e-4)
+        cy, _ = mixer_on(kind, cfg, params, u1, cc, "cpu")
+        gy, _ = mixer_on(kind, cfg, params, u1, cc, "cuda")
+        torch.testing.assert_close(gy, cy, atol=1e-4, rtol=1e-4)
+        for k in cc:
+            torch.testing.assert_close(gc[k].float(), cc[k].float(),
+                                       atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "recurrentgemma-9b"])
+def test_reused_slot_on_card_equals_fresh_batcher(arch):
+    """Five requests through a pool of 2 on the card (SMOKE, f32, TF32
+    off): each request's log-probs within 1e-4 of a fresh batcher that
+    serves it alone.  Rows may change with the batch's other rows on the
+    card, so the tokens are compared through their log-probs within a
+    tolerance; a stale recurrent state moves them by far more."""
+    need_cuda()
+    from repro_torch import configs
+    from repro_torch.envs.policy_net import exact_f32
+    from repro_torch.models import lm
+    from repro_torch.serving import ContinuousBatcher, Request
+
+    cfg = configs.get_config(arch, smoke=True)
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0), "cuda")
+    rng = np.random.RandomState(9)
+    prompts = [rng.randint(1, cfg.vocab, size=2 + 3 * i % 7).astype(np.int32)
+               for i in range(5)]
+
+    def serve(batch):
+        b = ContinuousBatcher(cfg, params, pool_size=2, max_seq=48,
+                              impl="flash", record_logprobs=True)
+        for i, p in batch:
+            b.submit(Request(uid=i, prompt=p, max_new_tokens=5))
+        return {r.uid: r for r in b.run(max_steps=200)}
+
+    with exact_f32():
+        pooled = serve(list(enumerate(prompts)))
+        for i, p in enumerate(prompts):
+            alone = serve([(i, p)])[i]
+            np.testing.assert_allclose(pooled[i].logprobs, alone.logprobs,
+                                       atol=1e-4, rtol=1e-4, err_msg=str(i))

@@ -52,6 +52,10 @@ def test_import_loads_no_jax_module():
         "import repro_torch.launch.serve, repro_torch.configs.llama3_2_1b\n"
         "import repro_torch.core.sharded, repro_torch.launch.mesh\n"
         "import repro_torch.models.sharding\n"
+        "import repro_torch.models.ssd, repro_torch.models.rglru\n"
+        "import repro_torch.configs.mamba2_2_7b\n"
+        "import repro_torch.configs.recurrentgemma_9b\n"
+        "import repro_torch.configs.granite_3_8b\n"
         "import repro_torch.envs.gomoku, repro_torch.envs.policy_net\n"
         "import repro_torch.sim.server, repro_torch.sim.cache\n"
         "import repro_torch.configs.gomoku_cfg, repro_torch.configs.pong\n"

@@ -4,7 +4,9 @@
 Inputs are numpy arrays from seeds, handed to both packages; weights are
 the JAX package's init_params carried across with from_jax_params.
 Layers agree to 1e-6, attention and the caches to 2e-5, whole forwards to
-1e-4 with identical argmax, greedy decoding token for token.
+1e-4 with identical argmax (2e-2 in bf16, the flash kernel's bf16
+tolerance), greedy decoding token for token.  granite-3-8b's SMOKE vocab
+(515) is padded to 768 (``padded_vocab``).
 """
 
 import dataclasses
@@ -16,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+import port_cases
 from repro import configs as jconfigs
 from repro.models import attention as JA
 from repro.models import layers as JL
@@ -27,7 +30,9 @@ from repro_torch.models import lm as tlm
 from repro_torch.models import steps as tsteps
 from test_serving import greedy_reference
 
-ARCHS = ("llama3.2-1b", "gemma3-12b", "starcoder2-3b")
+# the layer test's three cover every layer variant (granite's are llama's)
+LAYER_ARCHS = ("llama3.2-1b", "gemma3-12b", "starcoder2-3b")
+ARCHS = LAYER_ARCHS + ("granite-3-8b",)
 
 
 def cfgs(arch, **kw):
@@ -55,7 +60,7 @@ def close(t, j, tol):
 
 # ------------------------------------------------------------------ layers
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", LAYER_ARCHS)
 def test_norm_mlp_embed_unembed(arch):
     """rmsnorm/layernorm, gated and plain (silu / tanh-gelu) MLPs, the
     (scaled) embedding and the unembedding, with and without softcap."""
@@ -187,6 +192,19 @@ def test_forward_logits(models, arch):
         np.testing.assert_array_equal(tl.argmax(-1), jl.argmax(-1))
 
 
+@pytest.mark.parametrize("arch", ARCHS)
+def test_forward_logits_bf16(arch):
+    """The published dtype: bf16 weights and activations."""
+    jcfg, tcfg = cfgs(arch, dtype="bfloat16")
+    jp = jlm.init_params(jcfg, jax.random.PRNGKey(1))
+    tp = tlm.from_jax_params(tcfg, jax.tree.map(np.asarray, jp), "cpu")
+    tok = np.random.RandomState(6).randint(0, jcfg.vocab, (2, 40)).astype(np.int32)
+    jl = np.asarray(jlm.forward(jcfg, jp, jnp.asarray(tok), impl="naive")[0])
+    tl = tlm.forward(tcfg, tp, torch.tensor(tok), impl="naive")[0].numpy()
+    assert tl.shape == (2, 40, jcfg.padded_vocab)
+    close(tl, jl, 2e-2)
+
+
 def test_prefill_then_decode_matches_greedy_reference(models):
     """tests/test_serving.py::greedy_reference, 8 tokens, two prompts."""
     jcfg, tcfg, jp, tp = models["llama3.2-1b"]
@@ -227,3 +245,23 @@ def test_from_jax_params_round_trips_bit_for_bit(dtype):
         np.testing.assert_array_equal(a.view(np.uint8), b.view(np.uint8),
                                       err_msg=str(path))
     assert (n_bf16 > 0) == (dtype == "bfloat16")
+
+
+# ------------------------------------- test_models_smoke.py on the port
+
+SMOKE_UNPORTED = {
+    "test_forward_and_train_step": "the train step is ROADMAP.md queue A "
+                                   "item 9 (training)",
+    "test_mla_absorbed_decode_equivalence": "MLA (deepseek-v3) is ROADMAP.md "
+                                            "queue A item 8",
+}
+SMOKE_CASES = port_cases.cases("test_models_smoke", SMOKE_UNPORTED)
+
+
+@pytest.mark.parametrize("fn,kwargs", [c[1:] for c in SMOKE_CASES],
+                         ids=[c[0] for c in SMOKE_CASES])
+def test_jax_models_smoke_case_on_port(fn, kwargs, request):
+    """One test of tests/test_models_smoke.py, its own body run against
+    repro_torch over the ported archs (port_cases: JAX's weights and
+    tokens, the port's prefill, decode and forward)."""
+    port_cases.run_case(fn, kwargs, request)
