@@ -44,7 +44,9 @@ Phases (each raises on any failure, so the exit code is not 0):
      {f32, bf16} x window {None, 64}, the full-width head shapes of
      llama3.2-1b, starcoder2-3b and gemma3-12b (window 1024 and none) at
      B=1, S=2048, recurrentgemma-9b's local MQA (H=16, Hkv=1, dh=256,
-     window 2048) there and at phase 13's B=4 and B=16 x 2048, and the
+     window 2048) there and at phase 13's B=4 and B=16 x 2048,
+     mixtral-8x22b's GQA (H=48, Hkv=8, dh=128, window 4096) there and at
+     phase 14's B=16 x 2048, B=4 x 512 and B=1 x 43, and the
      shapes the main paths give it at llama3.2-1b width (phase 8's B=1
      forwards of 2-43 tokens, phase 6's B=4 x 512, the serve prefill's
      B=16 x 2048), within f32 2e-5 / bf16 2e-2; each
@@ -161,7 +163,31 @@ Phases (each raises on any failure, so the exit code is not 0):
      superstep goes; (e) a ContinuousBatcher of 2 slots over both archs
      at SMOKE width, f32: every request's log-probs within 1e-4 of a
      fresh batcher's that serves it alone, and moved by more with the
-     recurrent leaves' clearing patched out.
+     recurrent leaves' clearing patched out;
+ 14. the MoE and MLA families at full published width and cut depth
+     (each line's `reduced` names the cut): (a) the MoE dispatch at
+     mixtral's and deepseek-v3's E and K over the serve's 32,768 tokens,
+     router probabilities on the card (f32, TF32 off), the dispatch on the
+     card against the CPU's from the same probabilities, every integer
+     identical, for the drawn router, its columns duplicated in pairs
+     (exact ties) and a skewed one (pairs drop), with each expert's load
+     and the dropped pairs; (b) mixtral-8x22b at 2 layers in an f32 copy,
+     4 prompts of 512 tokens: the flash prefill within 1e-3 of blockwise,
+     32 greedy decode tokens within 2e-3 of the teacher-forced forward on
+     the prompts none of whose (token, expert) pairs dropped (at least
+     one); (c) deepseek-v3-671b's 3 dense MLA layers in an f32 copy, one
+     prompt of 2,048: the blockwise prefill within 1e-4 of naive, 16
+     decode tokens through the decompressed and the absorbed latent
+     cache, each within 2e-3 of the forward and of each other; (d)
+     serve.serve at mixtral 8 layers and deepseek 3 dense + 2 MoE layers,
+     bf16, 16 x 2,048 + 64: prefill ms, decode tokens/s, peak memory, the
+     prefill's dropped share, 8 flash launches for mixtral and none for
+     deepseek; (e) TreeParallelMCTS(X=256, F=6, D=4, p=16) over mixtral
+     at 8 layers, one run_step() against the numpy oracle; (f) one MoE
+     layer's prefill and decode step by part (router, dispatch, experts,
+     combine, shared expert), one MLA layer's prefill and decode steps,
+     and the flash kernel at mixtral's serve prefill against SDPA and its
+     bound.
 
 It prints JSON lines; the line before the last is {"kernels": [...]} and
 the last is {"ok": true, "device": {...}}.  It imports nothing of the JAX
@@ -171,6 +197,7 @@ package.  With no CUDA device it exits 2 before printing any result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -722,6 +749,7 @@ FULL_WIDTH_HEADS = [   # arch, H, Hkv, head_dim, windows (configs/*.py)
     ("starcoder2-3b", 24, 2, 128, (None,)),
     ("gemma3-12b", 16, 8, 256, (1024, None)),
     ("recurrentgemma-9b", 16, 1, 256, (2048,)),
+    ("mixtral-8x22b", 48, 8, 128, (4096,)),
 ]
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # test_flash_kernel.py:47
 LLAMA = "llama3.2-1b"
@@ -758,6 +786,7 @@ def phase_flash() -> int:
               for arch, H, Hkv, dh, windows in FULL_WIDTH_HEADS for w in windows]
     cases += [(s, None, LLAMA + " main path") for s in MAIN_PATH_SHAPES]
     cases += [(s, RG_WINDOW, RGEMMA + " phase 13") for s in RG_SHAPES]
+    cases += [(s, MIXTRAL_WINDOW, MIXTRAL + " phase 14") for s in MIXTRAL_SHAPES]
     bad, worst, n, worst_share = [], 0.0, 0, 0.0
     for shape, window, arch in cases:
         B, Sq, Sk, H, Hkv, dh = shape
@@ -1044,12 +1073,11 @@ def attn_layers(cfg) -> int:
     return sum(spec.kind == "attn" for spec in cfg.layer_specs())
 
 
-def phase_mcts_lm(arch=LLAMA, reuses=(False, True)):
+def phase_mcts_lm(cfg, reuses=(False, True)):
     """TreeParallelMCTS (cuda) over LMTreeEnv + LMContinuationBackend at
-    arch's full width, bf16, one run_step() per entry of `reuses`, held
-    superstep by superstep to the numpy oracle replaying the recorded env
-    steps and values.  Returns the kernels' launches."""
-    from repro_torch import configs
+    cfg (full width, depth as given), bf16, one run_step() per entry of
+    `reuses`, held superstep by superstep to the numpy oracle replaying
+    the recorded env steps and values.  Returns the kernels' launches."""
     from repro_torch.core import TreeConfig, TreeParallelMCTS
     from repro_torch.core.mcts import StepStats
     from repro_torch.kernels import flash_attention as FA
@@ -1058,7 +1086,6 @@ def phase_mcts_lm(arch=LLAMA, reuses=(False, True)):
     from repro_torch.obs import MetricsRegistry
     from repro_torch.sim import LMContinuationBackend, LMTreeEnv
 
-    cfg = configs.get_config(arch)
     params = lm.init_params(cfg, torch.Generator(device=DEV).manual_seed(0), DEV)
     tree = TreeConfig(X=256, F=6, D=4)
     env = RecordingEnv(LMTreeEnv(cfg, params, fanout=6, horizon=5))
@@ -1119,7 +1146,8 @@ def phase_mcts_lm(arch=LLAMA, reuses=(False, True)):
         if launches[name] != steps or steps == 0:
             raise AssertionError(f"{name} launched {launches[name]} times in "
                                  f"{steps} supersteps")
-    emit(phase="mcts_lm", arch=cfg.name, identical=True, supersteps=steps,
+    emit(phase="mcts_lm", arch=cfg.name, layers=cfg.n_layers, identical=True,
+         supersteps=steps,
          moves=moves,
          tokens=mc.env.env.tokens(mc.root_state).tolist(), launches=launches,
          full_forwards=forwards, env_steps=env.steps, admissions=admitted,
@@ -2588,7 +2616,7 @@ def forward_rows(cfg, params, seq, start: int, impl):
     from repro_torch.models import layers as L
     from repro_torch.models import lm
 
-    x = lm.hidden_states(cfg, params, seq, impl=impl)
+    x, _ = lm.hidden_states(cfg, params, seq, impl=impl)
     return L.unembed(cfg, params["embed"], x[:, start:])
 
 
@@ -2790,16 +2818,438 @@ def slot_reuse():
 def phase_recurrent() -> dict:
     """Phase 13: mamba2-2.7b and recurrentgemma-9b at full width.  Returns
     the kernels' launches on its paths."""
+    from repro_torch import configs
+
     t_phase = time.perf_counter()
     recurrent_decode()
     serve_launches = recurrent_serve()
     recurrent_layer_costs()
     prefill_launches = recurrent_prefill()
-    mcts = phase_mcts_lm(MAMBA, reuses=(False,))
+    mcts = phase_mcts_lm(configs.get_config(MAMBA), reuses=(False,))
     slot_reuse()
     emit(phase="recurrent", seconds=time.perf_counter() - t_phase)
     return {"serve": serve_launches, "prefill_f32": prefill_launches,
             "mcts": mcts}
+
+# ---------------------------------------------------------------------------
+# phase 14: the MoE and MLA families (mixtral-8x22b, deepseek-v3-671b) at
+# full width and cut depth
+# ---------------------------------------------------------------------------
+
+MIXTRAL, DEEPSEEK = "mixtral-8x22b", "deepseek-v3-671b"
+MOE_SERVE = dict(batch=16, prefill=2048, tokens=64)
+MIXTRAL_WINDOW = 4096
+MIXTRAL_SERVE_HEADS = (16, 2048, 48, 8, 128)   # B, S, H, Hkv, dh
+# the flash kernel at mixtral's heads on its paths: the serve prefill,
+# (b)'s f32 prefill and (e)'s longest B=1 forward
+MIXTRAL_SHAPES = [(16, 2048, 2048, 48, 8, 128), (4, 512, 512, 48, 8, 128),
+                  (1, 43, 43, 48, 8, 128)]
+GATE_TOL = 1e-7       # card against CPU gates: the same f32 division
+MLA_PREFILL_TOL = 1e-4  # blockwise against naive MLA prefill, f32
+
+
+def mixtral_cut(n_layers: int):
+    """mixtral-8x22b at its published width with n_layers of its 56."""
+    from repro_torch import configs
+
+    cfg = configs.get_config(MIXTRAL)
+    return dataclasses.replace(cfg, groups=((cfg.groups[0][0], n_layers),))
+
+
+def deepseek_cut(n_moe: int):
+    """deepseek-v3-671b at its published width: its 3 dense layers then
+    n_moe of its 58 MoE layers."""
+    from repro_torch import configs
+
+    cfg = configs.get_config(DEEPSEEK)
+    (dense, n), (moe, _) = cfg.groups
+    moe_group = ((moe, n_moe),) if n_moe else ()
+    return dataclasses.replace(cfg, groups=((dense, n),) + moe_group)
+
+
+def reduced(cfg) -> str:
+    from repro_torch import configs
+
+    full = configs.get_config(cfg.name)
+    return f"{cfg.n_layers} of {full.n_layers} layers, widths as published"
+
+
+class Routes:
+    """Inside `with`: every MoE dispatch of the port recorded (moe.dispatch
+    wrapped), as the kept mask of each (token, k) pair [T, K] on the
+    device; nothing is read back while recording."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.calls, self._dispatch = [], moe.dispatch
+
+        def recorded(probs, K, capacity_factor=1.25):
+            d = self._dispatch(probs, K, capacity_factor)
+            kept = torch.empty_like(d.keep)
+            kept[d.order] = d.keep
+            self.calls.append(kept.view(-1, K))
+            return d
+
+        moe.dispatch = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe.dispatch = self._dispatch
+
+    def dropped_rows(self, B: int, T: int) -> torch.Tensor:
+        """[B] bool: rows (of B rows of T/B tokens) any of whose pairs was
+        dropped in a recorded call over T tokens."""
+        out = torch.zeros(B, dtype=torch.bool, device=DEV)
+        for kept in self.calls:
+            if kept.shape[0] == T:
+                out |= (~kept).reshape(B, -1).any(1)
+        return out
+
+    def dropped_share(self, T: int) -> tuple:
+        """(dropped pairs, pairs) over the recorded calls of T tokens."""
+        calls = [k for k in self.calls if k.shape[0] == T]
+        return (sum(int((~k).sum()) for k in calls),
+                sum(k.numel() for k in calls))
+
+
+def moe_dispatch_checks() -> dict:
+    """(a) the dispatch at both archs' published E and K, at the serve's
+    T = 16 x 2,048 tokens: router probabilities on the card from the
+    router's logits (f32, TF32 off) over random hidden rows; the
+    dispatch on the card against the same function on the CPU from the
+    same probabilities, every integer identical and the gates within
+    1e-7.  Three routers: as drawn; with its columns duplicated in pairs
+    (exact ties: the lower expert of a pair must come first); skewed by a
+    ramp over the experts (some overflow, so pairs drop)."""
+    from repro_torch import configs
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    T = MOE_SERVE["batch"] * MOE_SERVE["prefill"]
+    dropped = {}
+    for arch in (MIXTRAL, DEEPSEEK):
+        cfg = configs.get_config(arch)
+        E, K, d = cfg.n_experts, cfg.top_k, cfg.d_model
+        gen = torch.Generator(device=DEV).manual_seed(5)
+        router = L.normal(gen, (d, E), torch.float32, 1.0 / np.sqrt(d))
+        x = randn(gen, (T, d), torch.bfloat16)
+        logits = x.float() @ router
+        for case in ("drawn", "ties", "skewed"):
+            lg = logits
+            if case == "ties":
+                lg = logits[:, 0::2].repeat_interleave(2, dim=1)
+            elif case == "skewed":
+                lg = logits + torch.linspace(0, 2, E, device=DEV)
+            probs = torch.softmax(lg, -1)
+            on_card = moe.dispatch(probs, K)
+            on_cpu = moe.dispatch(probs.cpu(), K)
+            torch.cuda.synchronize()
+            diff = {name: int((getattr(on_card, name).cpu()
+                               != getattr(on_cpu, name)).sum())
+                    for name in ("eidx", "order", "slot", "keep")}
+            gate_err = float((on_card.gate.cpu() - on_cpu.gate).abs().max())
+            load = moe.expert_counts(on_cpu.eidx, E)
+            keep = on_cpu.keep
+            n_drop = int((~keep).sum())
+            # each dropped pair's token and expert (order holds t*K + k)
+            drop_t = torch.div(on_cpu.order[~keep], K, rounding_mode="floor")
+            drop_x = on_cpu.eidx[drop_t, on_cpu.order[~keep] % K]
+            ties_first = None
+            if case == "ties":
+                ties_first = bool(((on_cpu.eidx[:, 0::2] % 2 == 0)
+                                   & (on_cpu.eidx[:, 1::2]
+                                      == on_cpu.eidx[:, 0::2] + 1)).all())
+            emit(phase="moe_dispatch", arch=arch, router=case, T=T, E=E, K=K,
+                 C=on_cpu.C, mismatches=diff, max_gate_err=gate_err,
+                 gate_tol=GATE_TOL, dropped_pairs=n_drop, pairs=T * K,
+                 dropped_first=[[int(t), int(e)] for t, e in
+                                zip(drop_t[:16], drop_x[:16])],
+                 dropped_per_expert=moe.expert_counts(drop_x, E).tolist(),
+                 load=load.tolist(), lower_expert_first_on_ties=ties_first)
+            if any(diff.values()) or on_card.C != on_cpu.C or gate_err > GATE_TOL:
+                raise AssertionError(f"{arch} {case}: the dispatch on the card "
+                                     f"differs from the CPU's: {diff}, gates "
+                                     f"{gate_err}")
+            if case == "ties" and not ties_first:
+                raise AssertionError(f"{arch}: tied experts out of order")
+            if case == "skewed" and n_drop == 0:
+                raise AssertionError(f"{arch}: the skewed router dropped no "
+                                     f"pair (the check is vacuous)")
+            dropped[f"{arch}/{case}"] = n_drop
+        del router, x, logits
+    return dropped
+
+
+def teacher_rows(cfg, params, seq, S: int, impl):
+    """Prefill seq[:, :S] with `impl`, then decode seq[:, S:] a token a
+    step: the prefill's logits and each step's, [B, n + 1, V] for the n
+    tokens after S."""
+    from repro_torch.models import lm, steps
+
+    B, n = seq.shape[0], seq.shape[1] - S
+    caches = lm.init_caches(cfg, B, seq.shape[1] + 8, DEV)
+    lg, caches = steps.make_prefill_step(cfg, impl=impl)(params, seq[:, :S], caches)
+    decode = steps.make_decode_step(cfg, impl=impl)
+    rows = [lg]
+    positions = torch.arange(S, S + n, device=DEV)
+    for i in range(n):
+        lg, caches = decode(params, caches, seq[:, S + i:S + i + 1], positions[i])
+        rows.append(lg)
+    return torch.stack(rows, 1)
+
+
+def moe_decode() -> int:
+    """(b) mixtral-8x22b at 2 layers in an f32 copy (TF32 off), 4 prompts
+    of 512 tokens: the flash prefill within 1e-3 of the blockwise prefill
+    (both route the same 2,048 tokens), argmax identical; then 32 greedy
+    decode tokens, each row within 2e-3 of the teacher-forced forward.
+    The forward routes 4 x 544 tokens, so its capacity differs from the
+    prefill's: rows (prompts) any of whose pairs dropped in either are
+    left out, and none compared is a failure.  Returns the flash
+    launches of the flash prefill."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import lm, steps
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(mixtral_cut(2), dtype="float32")
+    params = lm.init_params(cfg, torch.Generator(device=DEV).manual_seed(0), DEV)
+    B, S, n = 4, 512, 32
+    tokens = torch.randint(0, cfg.vocab, (B, S), device=DEV,
+                           generator=torch.Generator(device=DEV).manual_seed(1))
+    t0 = time.perf_counter()
+    FA.launches = 0
+    with Routes() as prefill_routes:
+        got, seq = decode_rows(cfg, params, tokens, n, "flash")
+    launches = FA.launches
+    caches = lm.init_caches(cfg, B, S + 8, DEV)
+    lb, _ = steps.make_prefill_step(cfg, impl="blockwise")(params, tokens, caches)
+    del caches
+    d = float((got[:, 0] - lb).abs().max())
+    agree = float((got[:, 0].argmax(-1) == lb.argmax(-1)).float().mean())
+    with Routes() as forward_routes:
+        want = forward_rows(cfg, params, seq, S - 1, "blockwise")
+    skip = (prefill_routes.dropped_rows(B, B * S)
+            | forward_routes.dropped_rows(B, B * (S + n)))
+    decode_drops = sum(int((~k).sum()) for k in prefill_routes.calls
+                       if k.shape[0] == B)
+    rows = (~skip).nonzero().flatten()
+    compared = int(rows.numel())
+    check = (against_forward("(b)", cfg, got[rows], want[rows], DECODE_TOL)
+             if compared else {})
+    emit(phase="moe_decode", arch=cfg.name, reduced=reduced(cfg),
+         dtype="float32", tf32=False, batch=B, prompt=S, flash_launches=launches,
+         flash_vs_blockwise_max_abs_diff=d, flash_vs_blockwise_argmax=agree,
+         decode_tokens=n, rows_compared=compared,
+         rows_with_drops=skip.tolist(),
+         prefill_dropped=prefill_routes.dropped_share(B * S),
+         forward_dropped=forward_routes.dropped_share(B * (S + n)),
+         decode_dropped=decode_drops, decode_vs_forward=check,
+         seconds=time.perf_counter() - t0)
+    if launches != attn_layers(cfg):
+        raise AssertionError(f"flash launched {launches} times in one prefill "
+                             f"of {attn_layers(cfg)} attention layers")
+    if d > PREFILL_TOL or agree != 1.0:
+        raise AssertionError(f"f32 flash prefill differs from blockwise: max "
+                             f"|d logits| {d}, argmax agreement {agree}")
+    if compared == 0 or decode_drops:
+        raise AssertionError(f"(b): {compared} rows compared, {decode_drops} "
+                             f"pairs dropped in decode")
+    del params
+    return launches
+
+
+def mla_decode():
+    """(c) deepseek-v3-671b's 3 dense (MLA) layers at full width in an f32
+    copy (TF32 off), one prompt of 2,048 tokens: the blockwise prefill
+    against the naive prefill within 1e-4 (hidden states at every
+    position and the last logits); then 16 decode tokens through the
+    decompressed cache and absorbed, each row within 2e-3 of the
+    teacher-forced forward and of each other."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(deepseek_cut(0), dtype="float32")
+    params = lm.init_params(cfg, torch.Generator(device=DEV).manual_seed(0), DEV)
+    S, n = 2048, 16
+    tokens = torch.randint(0, cfg.vocab, (1, S), device=DEV,
+                           generator=torch.Generator(device=DEV).manual_seed(1))
+    t0 = time.perf_counter()
+    hb, _ = lm.hidden_states(cfg, params, tokens, impl="blockwise")
+    hn, _ = lm.hidden_states(cfg, params, tokens, impl="naive")
+    dh = float((hb - hn).abs().max())
+    dl = float((L.unembed(cfg, params["embed"], hb[:, -1])
+                - L.unembed(cfg, params["embed"], hn[:, -1])).abs().max())
+    del hb, hn
+    got, seq = decode_rows(cfg, params, tokens, n, "blockwise")
+    absorbed = teacher_rows(dataclasses.replace(cfg, mla_absorb=True), params,
+                            seq, S, "blockwise")
+    want = forward_rows(cfg, params, seq, S - 1, "blockwise")
+    check = against_forward("(c) decompressed", cfg, got, want, DECODE_TOL)
+    check_abs = against_forward("(c) absorbed", cfg, absorbed, want, DECODE_TOL)
+    check_pair = against_forward("(c) absorbed vs decompressed", cfg, absorbed,
+                                 got, DECODE_TOL)
+    emit(phase="mla_decode", arch=cfg.name, reduced=reduced(cfg),
+         dtype="float32", tf32=False, batch=1, prompt=S,
+         blockwise_vs_naive_hidden_max_abs_diff=dh,
+         blockwise_vs_naive_logits_max_abs_diff=dl, tol=MLA_PREFILL_TOL,
+         decode_tokens=n, decompressed_vs_forward=check,
+         absorbed_vs_forward=check_abs, absorbed_vs_decompressed=check_pair,
+         seconds=time.perf_counter() - t0)
+    if dh > MLA_PREFILL_TOL or dl > MLA_PREFILL_TOL:
+        raise AssertionError(f"MLA blockwise prefill differs from naive: "
+                             f"hidden {dh}, logits {dl}")
+    del params
+
+
+def moe_serve() -> dict:
+    """(d) serve.serve at both cut archs (mixtral 8 layers, deepseek its 3
+    dense and 2 MoE layers), bf16, 16 prompts of 2,048 tokens then 64
+    tokens: a warm run (its routes recorded: the share of pairs dropped
+    in the prefill), then the timed run: prefill ms, decode tokens/s,
+    peak memory, the flash kernel's launches (one per mixtral layer, none
+    for MLA).  TF32 must be off (the routers' logits are f32 products)."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import serve
+
+    launches = {}
+    B, S, T = MOE_SERVE["batch"], MOE_SERVE["prefill"], MOE_SERVE["tokens"]
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: the routers' f32 logits, and with "
+                             "them the routes, would move")
+    for arch, cfg in ((MIXTRAL, mixtral_cut(8)), (DEEPSEEK, deepseek_cut(2))):
+        with Routes() as routes:
+            serve.serve(cfg, **MOE_SERVE)          # warm: cuBLAS, allocator
+        drop = routes.dropped_share(B * S)
+        del routes
+        FA.launches = 0
+        out = serve.serve(cfg, **MOE_SERVE)
+        launches[arch] = FA.launches
+        want = attn_layers(cfg) if cfg.attn_impl == "gqa" else 0
+        toks = out["tokens"]
+        emit(phase="moe_serve", arch=cfg.name, reduced=reduced(cfg),
+             shape=f"{B} x {S} + {T}", device=out["device"],
+             prefill_ms=1e3 * out["prefill_s"],
+             decode_tokens_per_s=B * T / out["decode_s"],
+             decode_ms_per_step=1e3 * out["decode_s"] / T,
+             req_per_s=out["req_per_s"], peak_gib=out["peak_bytes"] / 2**30,
+             prefill_dropped_pairs=drop[0], prefill_pairs=drop[1],
+             prefill_dropped_share=drop[0] / max(drop[1], 1),
+             flash_launches=launches[arch], tf32=False)
+        if launches[arch] != want:
+            raise AssertionError(f"{arch}: serve prefill launched flash "
+                                 f"{launches[arch]} times, not {want}")
+        if toks.shape != (B, T + 1) or toks.min() < 0 \
+                or toks.max() >= cfg.padded_vocab:
+            raise AssertionError(f"{arch}: serve tokens out of shape or range")
+        del out
+        release()
+    return launches
+
+
+def moe_layer_costs():
+    """(f) where a MoE layer's time goes, at the serve prefill (16 x 2,048
+    tokens) and one decode step (16 tokens), bf16 random weights: the
+    router, the dispatch, the expert products (with the gather), the
+    combine and deepseek's shared expert, each on the host's clock, its
+    device time and busy share (torch.profiler); and one MLA layer's
+    prefill (blockwise) and decode step (decompressed and absorbed)."""
+    from repro_torch import configs
+    from repro_torch.models import attention as A
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe
+
+    B, S = MOE_SERVE["batch"], MOE_SERVE["prefill"]
+    for arch in (MIXTRAL, DEEPSEEK):
+        cfg = configs.get_config(arch)
+        p = moe.init_moe(cfg, torch.Generator(device=DEV).manual_seed(0))
+        gen = torch.Generator(device=DEV).manual_seed(1)
+        for label, T in (("prefill", B * S), ("decode_step", B)):
+            xf = randn(gen, (T, cfg.d_model), L.dt(cfg))
+            probs = moe.route(p, xf)
+            dsp = moe.dispatch(probs, cfg.top_k)
+            ye = moe.experts(cfg, p, xf, dsp)
+            parts = {"router": lambda: moe.route(p, xf),
+                     "dispatch": lambda: moe.dispatch(probs, cfg.top_k),
+                     "experts": lambda: moe.experts(cfg, p, xf, dsp),
+                     "combine": lambda: moe.combine(ye, dsp)}
+            if cfg.n_shared_experts:
+                parts["shared"] = lambda: L.mlp(cfg, p["shared"], xf)
+            parts["layer"] = lambda: moe.moe_forward(cfg, p, xf[None])
+            n = 3 if label == "prefill" else 10
+            times = {k: wall_and_device_ms(fn, n) for k, fn in parts.items()}
+            # the expert products read every expert's weights once: a
+            # device time under that read at the HBM rate is a profiler
+            # undercount (records lost), not a speed
+            weight_bytes = 3 * cfg.n_experts * cfg.d_model * cfg.moe_d_ff * 2
+            hbm_floor_ms = 1e3 * weight_bytes / H100_HBM_BYTES_PER_S
+            for k in ("experts", "layer"):
+                times[k]["device_undercount"] = \
+                    times[k]["device_ms"] < hbm_floor_ms
+            emit(phase="moe_layer", arch=cfg.name, part=label, T=T, C=dsp.C,
+                 E=cfg.n_experts, K=cfg.top_k,
+                 expert_weight_gb=weight_bytes / 1e9,
+                 hbm_floor_ms=hbm_floor_ms, **times)
+            del xf, probs, dsp, ye, parts
+        del p
+        release()
+
+    cfg = configs.get_config(DEEPSEEK)
+    spec = cfg.groups[0][0][0]
+    p = A.init_attn(cfg, torch.Generator(device=DEV).manual_seed(0), spec)
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    x = randn(gen, (B, S, cfg.d_model), L.dt(cfg))
+    pos = torch.arange(S, device=DEV)
+    cache = A.init_cache(cfg, spec, B, S + MOE_SERVE["tokens"] + 8, DEV)
+    out = {"prefill": wall_and_device_ms(
+        lambda: A.attn_forward(cfg, spec, p, x, pos, None, impl="flash"), 3)}
+    A.attn_forward(cfg, spec, p, x, pos, cache, impl="flash")
+    x1, pos1 = x[:, :1], torch.tensor([S], device=DEV)
+    for absorb in (False, True):
+        c = dataclasses.replace(cfg, mla_absorb=absorb)
+        out["decode_absorbed" if absorb else "decode_decompressed"] = \
+            wall_and_device_ms(lambda: A.attn_forward(  # rewrites slot S alike
+                c, spec, p, x1, pos1, cache), 10)
+    emit(phase="mla_layer", arch=cfg.name, shape=f"B={B} S={S} {cfg.dtype}",
+         cache_slots=cache["c"].shape[1], **out)
+    del p, x, cache
+
+
+def release() -> float:
+    """Collect what earlier work left to the garbage collector (an MCTS
+    run's driver holds its model in a reference cycle through `logged`)
+    and return the cached blocks, before a sub-phase that fills most of
+    the card; returns the GiB still allocated."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated() / 2**30
+
+
+def phase_moe() -> dict:
+    """Phase 14: mixtral-8x22b and deepseek-v3-671b at full width and cut
+    depth.  Returns the kernels' launches on its paths and flash's row at
+    mixtral's serve shape."""
+    t_phase = time.perf_counter()
+    held = release()
+    dropped = moe_dispatch_checks()
+    f32_launches = moe_decode()
+    release()
+    mla_decode()
+    release()
+    serve_launches = moe_serve()
+    release()
+    mcts = phase_mcts_lm(mixtral_cut(8), reuses=(False,))
+    release()
+    moe_layer_costs()
+    row = flash_timing(MIXTRAL_SERVE_HEADS, 5, window=MIXTRAL_WINDOW)
+    emit(phase="moe", seconds=time.perf_counter() - t_phase,
+         held_gib_at_start=held, dispatch_dropped=dropped)
+    return {"serve": serve_launches, "prefill_f32": f32_launches, "mcts": mcts,
+            "flash_row": row}
 
 
 def main() -> int:
@@ -2808,6 +3258,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     sys.path.insert(0, str(ROOT / "tests"))     # tree_cases: seeded trees
+    from repro_torch import configs
     from repro_torch.kernels import build
 
     t_start = time.perf_counter()
@@ -2831,7 +3282,7 @@ def main() -> int:
     phase_lm_prefill()
     serve_launches = phase_serve()
     flash = flash_row()
-    lm_launches = phase_mcts_lm()
+    lm_launches = phase_mcts_lm(configs.get_config(LLAMA))
     kernels.append(dict(flash, launches=lm_launches["flash_attention"],
                         launches_serve=serve_launches))
     serving = phase_serving(mc)
@@ -2843,6 +3294,12 @@ def main() -> int:
         "serve_prefill": recurrent["serve"][RGEMMA],
         "f32_prefill": recurrent["prefill_f32"]}
     kernels[2]["launches_mamba2_mcts"] = recurrent["mcts"]["flash_attention"]
+    moe = phase_moe()
+    kernels[2]["at_mixtral_serve"] = moe["flash_row"]
+    kernels[2]["launches_mixtral_serve"] = moe["serve"][MIXTRAL]
+    kernels[2]["launches_deepseek_serve"] = moe["serve"][DEEPSEEK]
+    kernels[2]["launches_mixtral_f32_prefill"] = moe["prefill_f32"]
+    kernels[2]["launches_mixtral_mcts"] = moe["mcts"]["flash_attention"]
     for row in kernels[:2]:
         row["launches_serving"] = serving["launches"][row["name"]]
         row["launches_fused"] = {f"K{K}": fused_launches[K][row["name"]]
@@ -2858,6 +3315,7 @@ def main() -> int:
         row["gomoku_path_device_ms"] = gomoku["device_ms"].get(
             row["name"] + "_kernel")
         row["launches_mamba2_mcts"] = recurrent["mcts"][row["name"]]
+        row["launches_mixtral_mcts"] = moe["mcts"][row["name"]]
     emit(phase="total", seconds=round(time.perf_counter() - t_start, 3))
     print(gpu, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

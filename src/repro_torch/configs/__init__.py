@@ -2,8 +2,9 @@
 
 Each ported arch has its own module exporting CONFIG (the published
 numbers) and SMOKE (a reduced config of the same family for CPU tests).
-The dense GQA archs, mamba2 (SSD) and recurrentgemma (RG-LRU with local
-attention) are ported (``ARCH_IDS``); asking for another raises
+The dense GQA archs, mamba2 (SSD), recurrentgemma (RG-LRU with local
+attention), mixtral (MoE) and deepseek-v3 (MLA, MoE with a shared expert,
+the MTP head) are ported (``ARCH_IDS``); asking for another raises
 ``NotImplementedError`` naming the ROADMAP.md item that ports it.
 The MCTS benchmark configs of the paper itself live in pong.py /
 gomoku_cfg.py, outside the registry.
@@ -29,7 +30,8 @@ CANON = {
 
 # the archs get_config returns (repro.configs.ARCH_IDS has all ten)
 ARCH_IDS = ("llama3_2_1b", "gemma3_12b", "starcoder2_3b", "granite_3_8b",
-            "mamba2_2_7b", "recurrentgemma_9b")
+            "mamba2_2_7b", "recurrentgemma_9b", "deepseek_v3_671b",
+            "mixtral_8x22b")
 
 
 def normalize(arch: str) -> str:
@@ -40,8 +42,8 @@ def get_config(arch: str, smoke: bool = False):
     name = normalize(arch)
     if name not in ARCH_IDS:
         raise NotImplementedError(
-            f"arch {arch!r} is not ported yet: the port has {ARCH_IDS}; MoE and "
-            f"MLA (mixtral, deepseek), the encoder (whisper), the VLM prefix "
-            f"(paligemma) and MTP are ROADMAP.md queue A item 8")
+            f"arch {arch!r} is not ported yet: the port has {ARCH_IDS}; the "
+            f"encoder (whisper) and the VLM prefix (paligemma) are ROADMAP.md "
+            f"queue A item 8")
     mod = importlib.import_module(f"repro_torch.configs.{name}")
     return mod.SMOKE if smoke else mod.CONFIG

@@ -2,10 +2,11 @@
 (the port of repro.launch.serve).
 
 Stands up an LM (smoke or full config, random weights from --seed),
-prefills a batch of prompts through the flash kernel, then serves decode
-steps, reporting the paper's system-throughput metric (simulation
-requests per second, one request = one batched-decode slot).  Runs on the
-CUDA card unless given --device cpu.
+prefills a batch of prompts through the flash kernel (blockwise on MLA
+archs, whose q/k and v head dims differ), then serves decode steps,
+reporting the paper's system-throughput metric (simulation requests per
+second, one request = one batched-decode slot).  Runs on the CUDA card
+unless given --device cpu.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
       --batch 16 --prefill 2048 --tokens 64
@@ -29,6 +30,55 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+def serve(cfg, batch: int = 16, prefill: int = 64, tokens: int = 64,
+          seed: int = 0, device=None) -> dict:
+    """Stand up `cfg` with random weights from `seed`, prefill `batch`
+    prompts of `prefill` tokens through the flash kernel (MLA archs,
+    deepseek-v3, prefill blockwise: they never run it), then decode
+    `tokens` greedy steps; returns the timings, the device, the peak
+    device memory (on a card) and the tokens."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = lm.init_params(cfg, gen, device)
+    prefill_step = steps.make_prefill_step(cfg, impl="flash")
+    decode = steps.make_decode_step(cfg, impl="flash")
+
+    max_seq = prefill + tokens + 8
+    caches = lm.init_caches(cfg, batch, max_seq, device)
+    prompts = torch.as_tensor(np.random.RandomState(seed).randint(
+        0, cfg.vocab, (batch, prefill)), device=device)
+
+    _sync(device)
+    if device.type == "cuda":   # the peak over prefill and decode
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    logits, caches = prefill_step(params, prompts, caches)
+    _sync(device)
+    t1 = time.perf_counter()
+
+    tok = torch.argmax(logits, -1)[:, None]
+    out = [tok]
+    positions = torch.arange(prefill, prefill + tokens, device=device)
+    for i in range(tokens):
+        logits, caches = decode(params, caches, tok, positions[i])
+        tok = torch.argmax(logits, -1)[:, None]
+        out.append(tok)
+    _sync(device)
+    t2 = time.perf_counter()
+
+    n_req = batch * tokens
+    cuda = device.type == "cuda"
+    name = torch.cuda.get_device_name(device) if cuda else "cpu"
+    peak = torch.cuda.max_memory_allocated(device) if cuda else None
+    print(f"[serve] {cfg.name}: prefill {batch}x{prefill} in "
+          f"{t1-t0:.3f}s; {n_req} decode requests in {t2-t1:.3f}s "
+          f"=> {n_req/(t2-t1):,.0f} req/s on {name}"
+          + (f"; peak {peak / 2**30:.2f} GiB" if cuda else ""), flush=True)
+    return {"device": name, "prefill_s": t1 - t0, "decode_s": t2 - t1,
+            "req_per_s": n_req / (t2 - t1), "peak_bytes": peak,
+            "tokens": torch.cat(out, 1).cpu().numpy()}
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3.2-1b")
@@ -41,49 +91,9 @@ def main(argv=None) -> dict:
                     help="default: cuda (raises without a card); cpu runs "
                          "the plain torch path")
     args = ap.parse_args(argv)
-
-    device = resolve_device(args.device)
-    cfg = configs.get_config(args.arch, smoke=args.smoke)
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = lm.init_params(cfg, gen, device)
-    prefill = steps.make_prefill_step(cfg, impl="flash")
-    decode = steps.make_decode_step(cfg, impl="flash")
-
-    max_seq = args.prefill + args.tokens + 8
-    caches = lm.init_caches(cfg, args.batch, max_seq, device)
-    tokens = torch.as_tensor(np.random.RandomState(args.seed).randint(
-        0, cfg.vocab, (args.batch, args.prefill)), device=device)
-
-    _sync(device)
-    if device.type == "cuda":   # the peak over prefill and decode
-        torch.cuda.reset_peak_memory_stats(device)
-    t0 = time.perf_counter()
-    logits, caches = prefill(params, tokens, caches)
-    _sync(device)
-    t1 = time.perf_counter()
-
-    tok = torch.argmax(logits, -1)[:, None]
-    out = [tok]
-    positions = torch.arange(args.prefill, args.prefill + args.tokens,
-                             device=device)
-    for i in range(args.tokens):
-        logits, caches = decode(params, caches, tok, positions[i])
-        tok = torch.argmax(logits, -1)[:, None]
-        out.append(tok)
-    _sync(device)
-    t2 = time.perf_counter()
-
-    n_req = args.batch * args.tokens
-    cuda = device.type == "cuda"
-    name = torch.cuda.get_device_name(device) if cuda else "cpu"
-    peak = torch.cuda.max_memory_allocated(device) if cuda else None
-    print(f"[serve] {cfg.name}: prefill {args.batch}x{args.prefill} in "
-          f"{t1-t0:.3f}s; {n_req} decode requests in {t2-t1:.3f}s "
-          f"=> {n_req/(t2-t1):,.0f} req/s on {name}"
-          + (f"; peak {peak / 2**30:.2f} GiB" if cuda else ""), flush=True)
-    return {"device": name, "prefill_s": t1 - t0, "decode_s": t2 - t1,
-            "req_per_s": n_req / (t2 - t1), "peak_bytes": peak,
-            "tokens": torch.cat(out, 1).cpu().numpy()}
+    return serve(configs.get_config(args.arch, smoke=args.smoke),
+                 batch=args.batch, prefill=args.prefill, tokens=args.tokens,
+                 seed=args.seed, device=args.device)
 
 
 if __name__ == "__main__":

@@ -22,7 +22,23 @@ package rebuilds a cache, the port writes it in place
 are f32 as the JAX package's ``preferred_element_type=f32``; a bf16
 operand is widened to f32 first (its products are exact in f32).
 
-MLA and cross-attention wait for their slices (ROADMAP.md queue A item 8).
+MLA (deepseek-v3, ``_mla_forward``) caches the compressed latent ``c``
+(``kv_lora_rank`` wide) beside the shared rope key (``qk_rope_dim``), one
+``[B, buf, rkv + rr]`` leaf ring-buffered like k/v; a decode either
+decompresses the whole cache to per-head K/V or, with ``cfg.mla_absorb``,
+attends in the latent space.  Its scale is ``1/sqrt(qk_nope + qk_rope)``
+on every path.  Two choices differ from the JAX package:
+
+  * its prefill runs ``naive_attention`` for ``impl="naive"`` only and
+    ``blockwise_attention`` otherwise; the JAX package runs naive whenever
+    S <= 2,048, which at deepseek's serve shape (B=16, S=2,048, H=128)
+    would materialize 34 GB of f32 scores.  Both compute the same
+    function (blockwise is the JAX package's own path past 2,048 tokens).
+  * it never runs the flash kernel: its q/k head dim (192) differs from
+    its v head dim (128), and the kernel takes one head dim for all
+    three, so ``impl="flash"`` on MLA means blockwise, as above.
+
+Cross-attention waits for its slice (ROADMAP.md queue A item 8).
 """
 
 from __future__ import annotations
@@ -43,12 +59,20 @@ IMPLS = ("naive", "blockwise", "flash")
 # ------------------------------------------------------------------ init
 
 def init_attn(cfg, gen, spec) -> dict:
-    if cfg.attn_impl == "mla" or spec.cross_attn:
+    if spec.cross_attn:
         raise NotImplementedError(
-            "MLA and cross-attention are not ported yet (ROADMAP.md queue A "
-            "item 8)")
+            "cross-attention is not ported yet (ROADMAP.md queue A item 8)")
     d, H, Hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     s, so = 1.0 / math.sqrt(d), 1.0 / math.sqrt(H * dh)
+    if cfg.attn_impl == "mla":
+        qh = cfg.qk_nope_dim + cfg.qk_rope_dim
+        rq, rkv = cfg.q_lora_rank, cfg.kv_lora_rank
+        return {"wq_a": L.normal(gen, (d, rq), L.dt(cfg), s),
+                "wq_b": L.normal(gen, (rq, H, qh), L.dt(cfg), 1.0 / math.sqrt(rq)),
+                "wkv_a": L.normal(gen, (d, rkv + cfg.qk_rope_dim), L.dt(cfg), s),
+                "wkv_b": L.normal(gen, (rkv, H, cfg.qk_nope_dim + cfg.v_head_dim),
+                                  L.dt(cfg), 1.0 / math.sqrt(rkv)),
+                "wo": L.normal(gen, (H, cfg.v_head_dim, d), L.dt(cfg), so)}
     return {"wq": L.normal(gen, (d, H, dh), L.dt(cfg), s),
             "wk": L.normal(gen, (d, Hkv, dh), L.dt(cfg), s),
             "wv": L.normal(gen, (d, Hkv, dh), L.dt(cfg), s),
@@ -128,9 +152,11 @@ def blockwise_attention(q, k, v, *, causal=True, window=None, prefix=0,
     bq, bk = min(BLOCK_Q, S), min(BLOCK_K, Sk)
     nq, nk = -(-S // bq), -(-Sk // bk)
     Sp, Skp = nq * bq, nk * bk
-    qp = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, Sp - S))
-    kp = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, Skp - Sk))
-    vp = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, Skp - Sk))
+    # padded copies only where a block is partial (MLA's serve prefill
+    # holds 1.5 GiB each of q and k)
+    pad = lambda t, n: t if n == 0 else torch.nn.functional.pad(
+        t, (0, 0, 0, 0, 0, n))
+    qp, kp, vp = pad(q, Sp - S), pad(k, Skp - Sk), pad(v, Skp - Sk)
     dev = q.device
     # how many kv blocks behind the diagonal a query block must visit
     w_blocks = nk if window is None else min(nk, window // bk + 2)
@@ -160,10 +186,12 @@ def blockwise_attention(q, k, v, *, causal=True, window=None, prefix=0,
             if window is not None:
                 msk &= kpos[None, :] > qpos[:, None] - window
             msk &= (kpos < Sk)[None, :]
-            s = torch.where(msk, s, NEG)
+            # in place: at [B, H, 512, 512] f32 each copy of s is 2 GiB at
+            # deepseek-v3's serve prefill
+            s.masked_fill_(~msk, NEG)
             m_new = torch.maximum(m_run, s.amax(-1))
             alpha = torch.exp(m_run - m_new)
-            p_b = torch.exp(s - m_new[..., None])
+            p_b = s.sub_(m_new[..., None]).exp_()
             l_run = l_run * alpha + p_b.sum(-1)
             acc = acc * alpha[..., None] + _block_out(p_b, vblk)
             m_run = m_new
@@ -191,10 +219,10 @@ def attn_forward(cfg, spec, p, x, positions, cache=None, impl="blockwise"):
     """Self-attention.  x: [B,S,d].  cache: None (prefill without cache)
     or dict(k, v, pos) for decode / prefill-with-cache, written in place.
     Returns (out [B,S,d], cache)."""
-    if cfg.attn_impl == "mla":
-        raise NotImplementedError("MLA is not ported yet (ROADMAP.md queue A item 8)")
     if impl not in IMPLS:
         raise ValueError(f"impl {impl!r} not in {IMPLS}")
+    if cfg.attn_impl == "mla":
+        return _mla_forward(cfg, p, x, positions, cache, impl)
     S = x.shape[1]
     q = L.rope(_proj_in(x, p["wq"]), positions, cfg.rope_theta)
     k = L.rope(_proj_in(x, p["wk"]), positions, cfg.rope_theta)
@@ -227,6 +255,11 @@ def attn_forward(cfg, spec, p, x, positions, cache=None, impl="blockwise"):
 def init_cache(cfg, spec, batch, max_seq, device) -> dict:
     """Preallocated decode cache for one attention layer."""
     buf = max_seq if spec.window is None else min(spec.window, max_seq)
+    if cfg.attn_impl == "mla":
+        width = cfg.kv_lora_rank + cfg.qk_rope_dim
+        return {"c": torch.zeros((batch, buf, width), dtype=L.dt(cfg),
+                                 device=device),
+                "pos": torch.zeros((), dtype=torch.int32, device=device)}
     shape = (batch, buf, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=L.dt(cfg), device=device),
             "v": torch.zeros(shape, dtype=L.dt(cfg), device=device),
@@ -238,36 +271,31 @@ def _cache_update(cfg, spec, cache, k, v, positions):
     place.  When prefilling more tokens than the buffer holds, keep the
     last `buf`.  positions: [S] shared, or [B, S] per-row (ragged
     continuous batching)."""
-    ck, cv = cache["k"], cache["v"]
-    buf = ck.shape[1]
-    if k.shape[1] > buf:
-        k, v = k[:, -buf:], v[:, -buf:]
-        positions = positions[..., -buf:]
-    slots = (positions % buf).long()
-    if slots.dim() == 2:  # per-row scatter
-        b_idx = torch.arange(k.shape[0], device=k.device)[:, None]
-        ck[b_idx, slots] = k.to(ck.dtype)
-        cv[b_idx, slots] = v.to(cv.dtype)
-    else:
-        ck[:, slots] = k.to(ck.dtype)
-        cv[:, slots] = v.to(cv.dtype)
+    for name, new in (("k", k), ("v", v)):
+        _write_slots(cache[name], new, positions)
     cache["pos"].copy_(positions.max() + 1)
     return cache
+
+
+def _write_slots(buf_t, new, positions):
+    """buf_t[:, positions % buf] = new, in place (per row where positions
+    is [B, S]); of more tokens than the buffer holds, the last `buf`."""
+    buf = buf_t.shape[1]
+    if new.shape[1] > buf:
+        new, positions = new[:, -buf:], positions[..., -buf:]
+    slots = (positions % buf).long()
+    if slots.dim() == 2:  # per-row scatter
+        b_idx = torch.arange(new.shape[0], device=new.device)[:, None]
+        buf_t[b_idx, slots] = new.to(buf_t.dtype)
+    else:
+        buf_t[:, slots] = new.to(buf_t.dtype)
 
 
 def _decode_attend(cfg, spec, q, cache, positions):
     """Single-token attention over the cache buffer with validity mask.
     positions: [1] shared, or [B, 1] per-row (ragged batching)."""
-    B = q.shape[0]
-    buf = cache["k"].shape[1]
-    cur = positions[..., -1]                          # [] or [B]
-    slot_pos = _slot_positions(buf, cur)              # [buf] or [B, buf]
-    curb = cur[..., None]
-    # slot_pos < 0 marks never-written ring slots (first lap)
-    valid = (slot_pos <= curb) & (slot_pos >= 0)
-    if spec.window is not None:
-        valid &= slot_pos > curb - spec.window
-    valid = valid.expand(B, buf)
+    valid = _valid_slots(cache["k"].shape[1], positions, q.shape[0],
+                         spec.window)
     scale = 1.0 / math.sqrt(q.shape[-1])
     s = _gqa_scores(q * scale, cache["k"])            # [B,H,1,buf]
     s = torch.where(valid[:, None, None, :], s, NEG)
@@ -282,3 +310,79 @@ def _slot_positions(buf, cur):
     c = cur[..., None] if cur.dim() else cur
     wrap = torch.div(c, buf, rounding_mode="floor") * buf + idx
     return torch.where(idx <= c % buf, wrap, wrap - buf)
+
+
+def _valid_slots(buf, positions, B, window=None):
+    """[B, buf] bool: the ring slots a decode at `positions` ([1] shared
+    or [B, 1] per row) may read: written (slot_pos < 0 marks a slot not
+    yet written on the first lap), not past the current position, and
+    inside the window."""
+    cur = positions[..., -1]                          # [] or [B]
+    slot_pos = _slot_positions(buf, cur)              # [buf] or [B, buf]
+    curb = cur[..., None]
+    valid = (slot_pos <= curb) & (slot_pos >= 0)
+    if window is not None:
+        valid &= slot_pos > curb - window
+    return valid.expand(B, buf)
+
+
+# -------------------------------------------------------------------- MLA
+
+def _mla_forward(cfg, p, x, positions, cache, impl):
+    """DeepSeek-V3 multi-head latent attention (the JAX package's
+    ``_mla_forward``).  The cache holds only the compressed latent and
+    the shared rope key per token; attention decompresses them per call
+    (prefill, and decode unless ``cfg.mla_absorb``)."""
+    B, S, _ = x.shape
+    rkv, rr = cfg.kv_lora_rank, cfg.qk_rope_dim
+    nope = cfg.qk_nope_dim
+    scale = 1.0 / math.sqrt(nope + rr)
+
+    q = _proj_in(x @ p["wq_a"], p["wq_b"])               # [B,S,H,nope+rr]
+    q_nope = q[..., :nope]
+    q_rope = L.rope(q[..., nope:], positions, cfg.rope_theta)
+    q = torch.cat([q_nope, q_rope], -1)
+
+    ckv = x @ p["wkv_a"]                                  # [B,S,rkv+rr]
+    k_rope = L.rope(ckv[:, :, None, rkv:], positions, cfg.rope_theta)[:, :, 0]
+    ckv = torch.cat([ckv[..., :rkv], k_rope], -1)
+
+    decode = cache is not None and S == 1
+    if cache is not None:
+        _write_slots(cache["c"], ckv, positions)
+        cache["pos"].copy_(positions.max() + 1)
+    # decode reads the buffer; a prefill attends over its own raw latents
+    ckv_all = cache["c"] if decode else ckv
+    c_all, kr_all = ckv_all[..., :rkv], ckv_all[..., rkv:]
+
+    if decode and cfg.mla_absorb:
+        # attend in the compressed latent space instead of decompressing
+        # the whole cache per token:
+        #   q_abs[h] = q_nope[h] @ W_kv^nope[h]^T   -> [B,H,rkv]
+        #   score    = q_abs . c  +  q_rope . k_rope
+        #   out[h]   = (attn @ c) @ W_kv^v[h]
+        ok = _valid_slots(c_all.shape[1], positions, B)
+        w_nope, w_v = p["wkv_b"][..., :nope], p["wkv_b"][..., nope:]
+        q_abs = torch.einsum("bshk,rhk->bshr", q_nope, w_nope)
+        s_lat = torch.einsum("bshr,btr->bhst", q_abs.float(), c_all.float())
+        s_rope = torch.einsum("bshk,btk->bhst", q_rope.float(), kr_all.float())
+        s = (s_lat + s_rope) * scale
+        s = torch.where(ok[:, None, None, :], s, NEG)
+        a_w = torch.softmax(s, dim=-1)
+        ctx = torch.einsum("bhst,btr->bshr", a_w.to(c_all.dtype), c_all)
+        out = torch.einsum("bshr,rhk->bshk", ctx, w_v)
+        return _proj_out(out, p["wo"]), cache
+
+    # decompress the latents to per-head K/V
+    kv = _proj_in(c_all, p["wkv_b"])                     # [B,Sk,H,nope+dv]
+    k = torch.cat([kv[..., :nope],
+                   kr_all[:, :, None, :].expand(*kv.shape[:3], rr)], -1)
+    v = kv[..., nope:]
+    if decode:
+        ok = _valid_slots(c_all.shape[1], positions, B)
+        out = naive_attention(q, k, v, causal=False, kv_valid=ok, scale=scale)
+    elif impl == "naive":
+        out = naive_attention(q, k, v, causal=True, scale=scale)
+    else:
+        out = blockwise_attention(q, k, v, causal=True, scale=scale)
+    return _proj_out(out, p["wo"]), cache

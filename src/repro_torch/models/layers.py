@@ -10,6 +10,7 @@ device.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 
@@ -22,10 +23,28 @@ def dt(cfg) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
+_place = None     # set by drawing_into
+
+
 def normal(gen: torch.Generator, shape, dtype, scale: float) -> torch.Tensor:
-    """N(0, 1) * scale in `dtype`, drawn on the generator's device."""
+    """N(0, 1) * scale in `dtype`, drawn on the generator's device (inside
+    drawing_into(place), written into the tensor place(shape, dtype))."""
     x = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
-    return x.mul_(scale).to(dtype)
+    x.mul_(scale)
+    return x.to(dtype) if _place is None else _place(shape, dtype).copy_(x)
+
+
+@contextlib.contextmanager
+def drawing_into(place):
+    """Within the block, normal() writes each draw into place(shape,
+    dtype) and returns that tensor, so a caller can draw straight into
+    preallocated storage."""
+    global _place
+    prev, _place = _place, place
+    try:
+        yield
+    finally:
+        _place = prev
 
 
 # ----------------------------------------------------------------- norms
@@ -61,8 +80,8 @@ def act_fn(cfg):
 
 # ------------------------------------------------------------------- mlp
 
-def init_mlp(cfg, gen) -> dict:
-    d, f = cfg.d_model, cfg.d_ff
+def init_mlp(cfg, gen, d_ff=None) -> dict:
+    d, f = cfg.d_model, d_ff or cfg.d_ff
     s_in, s_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f)
     p = {"wi": normal(gen, (d, f), dt(cfg), s_in),
          "wo": normal(gen, (f, d), dt(cfg), s_out)}

@@ -21,7 +21,7 @@ def make_prefill_step(cfg: ModelConfig, impl: str = "blockwise"):
     caches)."""
 
     def prefill(params, tokens, caches):
-        x = lm.hidden_states(cfg, params, tokens, caches=caches, impl=impl)
+        x, _ = lm.hidden_states(cfg, params, tokens, caches=caches, impl=impl)
         return L.unembed(cfg, params["embed"], x[:, -1]), caches
 
     return prefill
@@ -36,8 +36,8 @@ def make_decode_step(cfg: ModelConfig, impl: str = "blockwise"):
         positions = pos[..., None].int()
         if cfg.vlm_patches:
             positions = positions + cfg.vlm_patches
-        x = lm.hidden_states(cfg, params, token, positions=positions,
-                             caches=caches, impl=impl)
+        x, _ = lm.hidden_states(cfg, params, token, positions=positions,
+                                caches=caches, impl=impl)
         return L.unembed(cfg, params["embed"], x[:, -1]), caches
 
     return decode

@@ -71,7 +71,7 @@ class LMTreeEnv:
 
     def top_actions(self, state: np.ndarray) -> np.ndarray:
         t = torch.as_tensor(self.tokens(state), device=self.device)[None]
-        x = lm.hidden_states(self.cfg, self.params, t, impl=self.impl)
+        x, _ = lm.hidden_states(self.cfg, self.params, t, impl=self.impl)
         # the last position's logits (the JAX package unembeds all and
         # slices); host float32 and numpy's argsort, so ties order as in JAX
         logits = L.unembed(self.cfg, self.params["embed"], x[0, -1]).cpu().numpy()

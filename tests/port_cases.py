@@ -30,7 +30,12 @@ repro_torch (no copy of it exists).  The rewrite:
     twin.  In tests/test_models_smoke.py ``jax.random.randint`` draws
     JAX's numbers into a torch tensor and the few ``jnp`` calls the bodies
     make on tokens and logits are torch's, so a body's prefill and decode
-    run the port's steps on the JAX package's weights and tokens.
+    run the port's steps on the JAX package's weights and tokens.  In
+    tests/test_serving.py ``jnp`` is torch's for the same few calls, so its
+    ``greedy_reference`` decodes with the port; tests/test_batcher.py's
+    ``greedy_reference`` (imported from test_serving, a test module the
+    rewrite leaves alone) is that ported one, so neither hands the port's
+    torch weights to the JAX package nor a jax array to the port.
 
 ``cases(module, exclude)`` expands each remaining test function's
 ``pytest.mark.parametrize`` marks into (id, function, kwargs) cases for
@@ -189,10 +194,23 @@ JAX_MODELS_SHIM = types.SimpleNamespace(
                                            randint=_jax_randint))
 JNP_MODELS_SHIM = types.SimpleNamespace(
     asarray=lambda x: torch.as_tensor(np.asarray(x)), argmax=torch.argmax,
-    roll=torch.roll, float32=torch.float32,
+    roll=torch.roll, stack=torch.stack, float32=torch.float32,
     ones=lambda shape, dtype=torch.float32: torch.ones(shape, dtype=dtype))
+JNP_SERVING_SHIM = types.SimpleNamespace(
+    asarray=lambda x, dtype=None: torch.as_tensor(np.asarray(x), dtype=dtype),
+    argmax=torch.argmax, int32=torch.int32)
+
+
+def _ported_greedy_reference(cfg, params, prompt, n_new):
+    """tests/test_serving.py's greedy_reference, run on the port."""
+    return port_module("test_serving").greedy_reference(cfg, params, prompt,
+                                                        n_new)
+
+
 SHIMS = {"test_fused_dispatch": {"jax": JAX_SHIM, "jnp": JNP_SHIM},
-         "test_models_smoke": {"jax": JAX_MODELS_SHIM, "jnp": JNP_MODELS_SHIM}}
+         "test_models_smoke": {"jax": JAX_MODELS_SHIM, "jnp": JNP_MODELS_SHIM},
+         "test_serving": {"jnp": JNP_SERVING_SHIM},
+         "test_batcher": {"greedy_reference": _ported_greedy_reference}}
 
 _MODULES: dict = {}
 

@@ -24,7 +24,10 @@ Sq != Sk, fused-projection views and recurrentgemma-9b's local MQA
 (Hkv=1, dh=256, window 2048); a misaligned bf16 stride raises.
 The SSD and RG-LRU mixers (plain torch) on the card against the CPU, at
 SMOKE width and one full-width layer, and a reused batcher slot over both
-recurrent archs against a fresh batcher.
+recurrent archs against a fresh batcher.  The MoE dispatch on the card
+against the CPU at the published E and K (every integer identical), and
+the MoE layer, MLA (prefill, decode decompressed and absorbed) and the
+whole SMOKE mixtral / deepseek-v3 on the card against the CPU.
 """
 
 import numpy as np
@@ -175,6 +178,8 @@ FLASH_CASES = [  # B, Sq, Sk, H, Hkv, dh, causal, window
     (1, 190, 90, 4, 1, 64, False, None),     # non-causal, Sq > Sk
     (1, 300, 520, 4, 4, 256, False, 100),
     (1, 2048, 2048, 16, 1, 256, True, 2048),  # recurrentgemma-9b's local MQA
+    (1, 43, 43, 48, 8, 128, True, 4096),     # mixtral-8x22b: MCTS forwards
+    (4, 512, 512, 48, 8, 128, True, 4096),   # and chip_smoke's f32 prefill
 ]
 
 
@@ -899,3 +904,124 @@ def test_reused_slot_on_card_equals_fresh_batcher(arch):
             alone = serve([(i, p)])[i]
             np.testing.assert_allclose(pooled[i].logprobs, alone.logprobs,
                                        atol=1e-4, rtol=1e-4, err_msg=str(i))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "deepseek-v3-671b"])
+@pytest.mark.parametrize("ties", [False, True])
+def test_moe_dispatch_on_card_matches_cpu(arch, ties):
+    """The published E and K at T=4,096 tokens: the dispatch of one set of
+    router probabilities on the card and on the CPU, every integer
+    identical (ties: the router's columns duplicated in pairs), gates
+    within 1e-7."""
+    need_cuda()
+    from repro_torch import configs
+    from repro_torch.models import moe
+
+    cfg = configs.get_config(arch)
+    E, K = cfg.n_experts, cfg.top_k
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    logits = torch.randn((4096, E), generator=gen, device="cuda")
+    logits += torch.linspace(0, 2, E, device="cuda")     # some experts overflow
+    if ties:
+        logits = logits[:, 0::2].repeat_interleave(2, dim=1)
+    probs = torch.softmax(logits, -1)
+    got, want = moe.dispatch(probs, K), moe.dispatch(probs.cpu(), K)
+    assert got.C == want.C and not bool(want.keep.all())
+    for name in ("eidx", "order", "slot", "keep"):
+        assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), name
+    torch.testing.assert_close(got.gate.cpu(), want.gate, atol=1e-7, rtol=0)
+
+
+def _on(tree, device):
+    if isinstance(tree, dict):
+        return {k: _on(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_on(v, device) for v in tree]
+    return tree.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "deepseek-v3-671b"])
+def test_moe_layer_on_card_matches_cpu(arch):
+    """One SMOKE MoE layer, f32 with TF32 off, 48 tokens at capacity
+    factors 1.25 and 0.5 (pairs drop): y and aux on the card within 1e-5
+    of the CPU."""
+    need_cuda()
+    from repro_torch import configs
+    from repro_torch.envs.policy_net import exact_f32
+    from repro_torch.models import moe
+
+    cfg = configs.get_config(arch, smoke=True)
+    p = moe.init_moe(cfg, torch.Generator().manual_seed(0))
+    x = torch.tensor(np.random.RandomState(1).randn(2, 24, cfg.d_model),
+                     dtype=torch.float32)
+    with exact_f32():
+        for cf in (1.25, 0.5):
+            cy, ca = moe.moe_forward(cfg, p, x, cf)
+            gy, ga = moe.moe_forward(cfg, _on(p, "cuda"), x.cuda(), cf)
+            torch.testing.assert_close(gy.cpu(), cy, atol=1e-5, rtol=1e-5)
+            torch.testing.assert_close(ga.cpu(), ca, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("absorb", [False, True])
+def test_mla_on_card_matches_cpu(absorb):
+    """One SMOKE MLA layer, f32 with TF32 off: the naive and blockwise
+    prefill of 600 tokens (two query blocks) and, from a 13-token prefill
+    into the latent cache, 3 decode steps (decompressed or absorbed): the
+    outputs and the cache on the card within 1e-5 of the CPU."""
+    need_cuda()
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.envs.policy_net import exact_f32
+    from repro_torch.models import attention as A
+
+    cfg = dataclasses.replace(configs.get_config("deepseek-v3-671b", smoke=True),
+                              mla_absorb=absorb)
+    spec = cfg.groups[0][0][0]
+    p = A.init_attn(cfg, torch.Generator().manual_seed(0), spec)
+    rng = np.random.RandomState(2)
+    x = torch.tensor(rng.randn(2, 600, cfg.d_model), dtype=torch.float32)
+    pos = torch.arange(600)
+    with exact_f32():
+        for impl in ("naive", "blockwise"):
+            c, _ = A.attn_forward(cfg, spec, p, x, pos, None, impl)
+            g, _ = A.attn_forward(cfg, spec, _on(p, "cuda"), x.cuda(), pos.cuda(),
+                                  None, impl)
+            torch.testing.assert_close(g.cpu(), c, atol=1e-5, rtol=1e-5)
+        caches = {d: A.init_cache(cfg, spec, 2, 24, d) for d in ("cpu", "cuda")}
+        for step, S in enumerate((13, 1, 1, 1)):
+            xs = torch.tensor(rng.randn(2, S, cfg.d_model), dtype=torch.float32)
+            ps = torch.arange(S) + (0 if step == 0 else 12 + step)
+            c, _ = A.attn_forward(cfg, spec, p, xs, ps, caches["cpu"], "blockwise")
+            g, _ = A.attn_forward(cfg, spec, _on(p, "cuda"), xs.cuda(), ps.cuda(),
+                                  caches["cuda"], "blockwise")
+            torch.testing.assert_close(g.cpu(), c, atol=1e-5, rtol=1e-5)
+            torch.testing.assert_close(caches["cuda"]["c"].cpu(),
+                                       caches["cpu"]["c"], atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "deepseek-v3-671b"])
+def test_moe_model_on_card_matches_cpu(arch):
+    """The whole SMOKE model, f32 with TF32 off: logits and aux of a
+    40-token forward (mixtral's prefill through the flash kernel, one
+    launch a layer) on the card within 1e-4 of the CPU."""
+    need_cuda()
+    from repro_torch import configs
+    from repro_torch.envs.policy_net import exact_f32
+    from repro_torch.models import lm
+
+    cfg = configs.get_config(arch, smoke=True)
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    tok = torch.tensor(np.random.RandomState(3).randint(0, cfg.vocab, (2, 40)))
+    with exact_f32():
+        cl, _, ca = lm.forward(cfg, params, tok, impl="flash")
+        n = FA.launches
+        gl, _, ga = lm.forward(cfg, _on(params, "cuda"), tok.cuda(), impl="flash")
+        torch.cuda.synchronize()
+    assert FA.launches - n == (cfg.n_layers if cfg.attn_impl == "gqa" else 0)
+    torch.testing.assert_close(gl.cpu(), cl, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(ga.cpu(), ca, atol=1e-5, rtol=1e-5)

@@ -15,6 +15,8 @@ import numpy as np
 import pytest
 import torch
 
+import port_cases
+
 from repro.core import TreeConfig as JCfg, TreeParallelMCTS as JMCTS
 from repro.core import RolloutBackend as JRollout
 from repro.envs import BanditTreeEnv as JBandit, BanditValueBackend as JValue
@@ -143,3 +145,29 @@ def test_unported_executor_names_raise():
         make_executor(TreeConfig(**CFG), "pallas", device="cpu")
     for name in ("faithful", "relaxed", "wavefront"):
         assert make_executor(TreeConfig(**CFG), name, device="cpu").G == 1
+
+
+# ------------------------- the JAX package's main-path suites on the port
+
+UNPORTED = {
+    "test_ordered_i32_bijection": "needs the range-analysis helpers "
+                                  "(f32_to_ordered_i32 / ordered_i32_to_f32, "
+                                  "src/repro/core/fixedpoint.py:60-90), "
+                                  "ROADMAP.md queue A item 12",
+    "test_bitwidth_sizing_rule": "needs the range-analysis helpers "
+                                 "(integer_bits_for, uct_upper_bound) and "
+                                 "TreeConfig.sram_bytes, ROADMAP.md queue A "
+                                 "item 12",
+}
+CASES = [c for m in ("test_reroot", "test_equivalence", "test_fixedpoint")
+         for c in port_cases.cases(m, UNPORTED)]
+
+
+@pytest.mark.parametrize("fn,kwargs", [c[1:] for c in CASES],
+                         ids=[c[0] for c in CASES])
+def test_jax_main_path_case_on_port(fn, kwargs, request):
+    """One test of tests/test_reroot.py, test_equivalence.py (the paper's
+    claim: the system equals the sequential oracle bit for bit) or
+    test_fixedpoint.py, its own body run against repro_torch
+    (port_cases)."""
+    port_cases.run_case(fn, kwargs, request)

@@ -6,7 +6,10 @@ the JAX package's init_params carried across with from_jax_params.
 Layers agree to 1e-6, attention and the caches to 2e-5, whole forwards to
 1e-4 with identical argmax (2e-2 in bf16, the flash kernel's bf16
 tolerance), greedy decoding token for token.  granite-3-8b's SMOKE vocab
-(515) is padded to 768 (``padded_vocab``).
+(515) is padded to 768 (``padded_vocab``).  mixtral-8x22b and
+deepseek-v3-671b (MoE, MLA) join the whole-forward checks with their aux
+loss, the weight carry (deepseek's MTP head included) and the MTP head's
+logits (1e-5).
 """
 
 import dataclasses
@@ -32,7 +35,9 @@ from test_serving import greedy_reference
 
 # the layer test's three cover every layer variant (granite's are llama's)
 LAYER_ARCHS = ("llama3.2-1b", "gemma3-12b", "starcoder2-3b")
-ARCHS = LAYER_ARCHS + ("granite-3-8b",)
+DENSE_ARCHS = LAYER_ARCHS + ("granite-3-8b",)
+MOE_ARCHS = ("mixtral-8x22b", "deepseek-v3-671b")
+ARCHS = DENSE_ARCHS + MOE_ARCHS
 
 
 def cfgs(arch, **kw):
@@ -183,18 +188,26 @@ def test_cache_update_and_decode_attend(window, max_seq, kind):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_forward_logits(models, arch):
+    """Logits and the MoE layers' summed aux loss (zero for dense archs)."""
     jcfg, tcfg, jp, tp = models[arch]
     tok = np.random.RandomState(5).randint(0, jcfg.vocab, (2, 40)).astype(np.int32)
-    jl = np.asarray(jlm.forward(jcfg, jp, jnp.asarray(tok), impl="naive")[0])
+    jl, _, jaux = jlm.forward(jcfg, jp, jnp.asarray(tok), impl="naive")
+    jl = np.asarray(jl)
     for impl in ("naive", "blockwise", "flash"):
-        tl = tlm.forward(tcfg, tp, torch.tensor(tok), impl=impl)[0].numpy()
-        close(tl, jl, 1e-4)
-        np.testing.assert_array_equal(tl.argmax(-1), jl.argmax(-1))
+        tl, _, taux = tlm.forward(tcfg, tp, torch.tensor(tok), impl=impl)
+        close(tl.numpy(), jl, 1e-4)
+        np.testing.assert_array_equal(tl.numpy().argmax(-1), jl.argmax(-1))
+        close(taux, jaux, 1e-4)
+    assert (float(jaux) > 0) == (arch in MOE_ARCHS)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
 def test_forward_logits_bf16(arch):
-    """The published dtype: bf16 weights and activations."""
+    """The published dtype: bf16 weights and activations.  Not the MoE
+    archs: there a bf16 rounding upstream of a router can flip a route
+    whose top-k scores nearly tie, which moves that token's row by O(1);
+    their bf16 legs are per layer (tests/test_torch_moe.py,
+    tests/test_torch_mla.py)."""
     jcfg, tcfg = cfgs(arch, dtype="bfloat16")
     jp = jlm.init_params(jcfg, jax.random.PRNGKey(1))
     tp = tlm.from_jax_params(tcfg, jax.tree.map(np.asarray, jp), "cpu")
@@ -247,13 +260,64 @@ def test_from_jax_params_round_trips_bit_for_bit(dtype):
     assert (n_bf16 > 0) == (dtype == "bfloat16")
 
 
+def back_to_numpy(t):
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_from_jax_params_carries_moe_mla_and_mtp_bit_for_bit(arch, dtype):
+    """The whole tree: the experts, the router, the shared expert, MLA's
+    projections and deepseek's MTP head (proj, its unstacked block and
+    norm), leaf for leaf and bit for bit."""
+    jcfg, tcfg = cfgs(arch, dtype=dtype)
+    tree = jax.tree.map(np.asarray, jlm.init_params(jcfg, jax.random.PRNGKey(1)))
+    tp = tlm.from_jax_params(tcfg, tree, "cpu")
+    flat_j = jax.tree_util.tree_leaves_with_path(tree)
+    flat_t = jax.tree_util.tree_leaves_with_path(jax.tree.map(
+        back_to_numpy, tp, is_leaf=lambda x: isinstance(x, torch.Tensor)))
+    assert [p for p, _ in flat_j] == [p for p, _ in flat_t]
+    for (path, a), (_, b) in zip(flat_j, flat_t):
+        assert a.dtype == b.dtype and a.shape == b.shape, path
+        np.testing.assert_array_equal(a.view(np.uint8), b.view(np.uint8),
+                                      err_msg=str(path))
+    names = {jax.tree_util.keystr(p) for p, _ in flat_j}
+    assert any("'moe'" in n and "'router'" in n for n in names)
+    assert any("'mtp'" in n for n in names) == (arch == "deepseek-v3-671b")
+    # the port's own init builds the same tree, shapes and dtypes included
+    own = tlm.init_params(tcfg, torch.Generator().manual_seed(0), "cpu")
+    shapes = lambda t: [(jax.tree_util.keystr(p), tuple(x.shape), str(x.dtype))
+                        for p, x in jax.tree_util.tree_leaves_with_path(t)]
+    assert shapes(jax.tree.map(back_to_numpy, own, is_leaf=lambda x: isinstance(
+        x, torch.Tensor))) == shapes(tree)
+
+
+def test_mtp_logits_match_jax(models):
+    """deepseek-v3's multi-token-prediction head on the trunk's hidden
+    states and the next tokens' embeddings, within 1e-5."""
+    jcfg, tcfg, jp, tp = models["deepseek-v3-671b"]
+    tok = np.random.RandomState(7).randint(0, jcfg.vocab, (2, 17)).astype(np.int32)
+    pos = np.arange(16, dtype=np.int32)
+    _, _, _, jh = jlm.forward(jcfg, jp, jnp.asarray(tok[:, :16]), impl="naive",
+                              return_hidden=True)
+    tl, _, _, th = tlm.forward(tcfg, tp, torch.tensor(tok[:, :16]), impl="naive",
+                               return_hidden=True)
+    close(th, jh, 1e-5)
+    jn = JL.embed(jcfg, jp["embed"], jnp.asarray(tok[:, 1:]))
+    tn = TL.embed(tcfg, tp["embed"], torch.tensor(tok[:, 1:]))
+    want = jlm.mtp_logits(jcfg, jp, jh, jn, jnp.asarray(pos))
+    got = tlm.mtp_logits(tcfg, tp, th, tn, torch.tensor(pos))
+    assert got.shape == (2, 16, jcfg.padded_vocab)
+    close(got, want, 1e-5)
+
+
 # ------------------------------------- test_models_smoke.py on the port
 
 SMOKE_UNPORTED = {
     "test_forward_and_train_step": "the train step is ROADMAP.md queue A "
                                    "item 9 (training)",
-    "test_mla_absorbed_decode_equivalence": "MLA (deepseek-v3) is ROADMAP.md "
-                                            "queue A item 8",
 }
 SMOKE_CASES = port_cases.cases("test_models_smoke", SMOKE_UNPORTED)
 
