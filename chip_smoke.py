@@ -46,7 +46,10 @@ Phases (each raises on any failure, so the exit code is not 0):
      B=1, S=2048, recurrentgemma-9b's local MQA (H=16, Hkv=1, dh=256,
      window 2048) there and at phase 13's B=4 and B=16 x 2048,
      mixtral-8x22b's GQA (H=48, Hkv=8, dh=128, window 4096) there and at
-     phase 14's B=16 x 2048, B=4 x 512 and B=1 x 43, and the
+     phase 14's B=16 x 2048, B=4 x 512 and B=1 x 43, whisper-small's
+     heads (H = Hkv = 12, dh = 64) at phase 15's B=16: its encoder
+     (non-causal, 1,500 x 1,500), cross-attention (non-causal, 384
+     queries over 1,500 keys) and decoder (causal 384), and the
      shapes the main paths give it at llama3.2-1b width (phase 8's B=1
      forwards of 2-43 tokens, phase 6's B=4 x 512, the serve prefill's
      B=16 x 2048), within f32 2e-5 / bf16 2e-2; each
@@ -187,6 +190,26 @@ Phases (each raises on any failure, so the exit code is not 0):
      layer's prefill and decode step by part (router, dispatch, experts,
      combine, shared expert), one MLA layer's prefill and decode steps,
      and the flash kernel at mixtral's serve prefill against SDPA and its
+     bound;
+ 15. the encoder and the VLM prefix at full published width and depth:
+     (a) whisper-small in an f32 copy (TF32 off), 4 prompts of 384
+     tokens over seeded frames (1,500): the flash prefill (36 launches:
+     12 encoder layers, 12 self- and 12 cross-attentions) within 1e-3 of
+     the naive prefill, 32 greedy decode tokens through the cross-KV
+     cache within 2e-3 of the teacher-forced forward, the card's forward
+     of one prompt within 1e-4 of the CPU's; (b) paligemma-3b in an f32
+     copy, 2 prompts of 256 tokens behind 256 seeded patches: the
+     blockwise prefix prefill within 1e-3 of naive, 16 decode tokens
+     with serve's cache within 2e-3 of the forward, and the same tokens
+     through the JAX launcher's cache size (without the prefix), which
+     must move decode off the forward by more than 1e-2; (c) serve.serve
+     at both, bf16 (whisper 16 x 384 + 64 over 1,500 frames, paligemma
+     16 x (256 + 2,048) + 64): prefill ms, decode tokens/s, peak memory,
+     the route, 36 and 0 flash launches, then one prefill and one
+     decode step of each timed by part (host ms, device ms, busy share,
+     top kernels); (d) the flash kernel at
+     whisper's encoder (B=16, S=1,500) and cross-attention (B=16, 384
+     over 1,500) shapes, non-causal, against blockwise, SDPA and its
      bound.
 
 It prints JSON lines; the line before the last is {"kernels": [...]} and
@@ -769,6 +792,13 @@ RG_WINDOW = 2048
 # serve prefill (phase 13) and phase 13's f32 prefill
 RG_SHAPES = [(16, 2048, 2048, 16, 1, 256), (4, 2048, 2048, 16, 1, 256)]
 RG_SERVE_HEADS = (16, 2048, 16, 1, 256)   # B, S, H, Hkv, dh
+WHISPER, PALIGEMMA = "whisper-small", "paligemma-3b"
+# whisper-small's heads (H = Hkv = 12, dh = 64) at phase 15's serve shape
+# (16 x 384 tokens over 1,500 frames): (shape, causal) of its encoder, its
+# cross-attention and its decoder's self-attention
+WHISPER_SHAPES = [((16, 1500, 1500, 12, 12, 64), False),
+                  ((16, 384, 1500, 12, 12, 64), False),
+                  ((16, 384, 384, 12, 12, 64), True)]
 
 
 def randn(gen, shape, dtype):
@@ -781,20 +811,23 @@ def phase_flash() -> int:
     # the f32 references state their matmul precision: TF32 off
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=DEV).manual_seed(0)
-    cases = [(s, w, None) for s in FLASH_SHAPES for w in (None, 64)]
-    cases += [((1, 2048, 2048, H, Hkv, dh), w, arch)
+    cases = [(s, w, None, True) for s in FLASH_SHAPES for w in (None, 64)]
+    cases += [((1, 2048, 2048, H, Hkv, dh), w, arch, True)
               for arch, H, Hkv, dh, windows in FULL_WIDTH_HEADS for w in windows]
-    cases += [(s, None, LLAMA + " main path") for s in MAIN_PATH_SHAPES]
-    cases += [(s, RG_WINDOW, RGEMMA + " phase 13") for s in RG_SHAPES]
-    cases += [(s, MIXTRAL_WINDOW, MIXTRAL + " phase 14") for s in MIXTRAL_SHAPES]
+    cases += [(s, None, LLAMA + " main path", True) for s in MAIN_PATH_SHAPES]
+    cases += [(s, RG_WINDOW, RGEMMA + " phase 13", True) for s in RG_SHAPES]
+    cases += [(s, MIXTRAL_WINDOW, MIXTRAL + " phase 14", True)
+              for s in MIXTRAL_SHAPES]
+    cases += [(s, None, WHISPER + " phase 15", c) for s, c in WHISPER_SHAPES]
     bad, worst, n, worst_share = [], 0.0, 0, 0.0
-    for shape, window, arch in cases:
+    for shape, window, arch, causal in cases:
         B, Sq, Sk, H, Hkv, dh = shape
         for dtype, tol in FLASH_TOL.items():
             q = randn(gen, (B, Sq, H, dh), dtype)
             k, v = (randn(gen, (B, Sk, Hkv, dh), dtype) for _ in range(2))
-            out = FA.flash_attention(q, k, v, causal=True, window=window).float()
-            ref = FA.flash_attention_plain(q, k, v, causal=True,
+            out = FA.flash_attention(q, k, v, causal=causal,
+                                     window=window).float()
+            ref = FA.flash_attention_plain(q, k, v, causal=causal,
                                            window=window).float()
             torch.cuda.synchronize()
             err = (out - ref).abs()
@@ -804,7 +837,7 @@ def phase_flash() -> int:
             del ref
             if dtype == torch.bfloat16:
                 wide = FA.flash_attention_plain(q.float(), k.float(), v.float(),
-                                                causal=True, window=window)
+                                                causal=causal, window=window)
                 atol, rtol = FA.BF16_ROUND_TOL
                 werr = (out - wide).abs()
                 ok_w = bool((werr <= atol + rtol * wide.abs()).all())
@@ -818,9 +851,9 @@ def phase_flash() -> int:
                 del wide, werr
             worst, n = max(worst, e), n + 1
             emit(phase="flash", shape=list(shape), arch=arch, window=window,
-                 dtype=str(dtype).split(".")[-1], ok=ok, **row)
+                 causal=causal, dtype=str(dtype).split(".")[-1], ok=ok, **row)
             if not ok:
-                bad.append((shape, window, str(dtype)))
+                bad.append((shape, window, causal, str(dtype)))
             del q, k, v, out, err
     AGREEMENT["flash_attention"] = [len(bad), worst]
     emit(phase="flash", cases=n, outside_tolerance=len(bad), max_abs_err=worst,
@@ -920,10 +953,11 @@ def phase_serve() -> int:
 PHASE8_HEADS = (1, 43, 32, 8, 64)   # phase 8's longest B=1 forward
 
 
-def flash_timing(shape, seed, window=None) -> dict:
-    """The flash kernel at one bf16 causal shape (B, S, H, Hkv, dh), with
-    an optional sliding window: ms per launch from CUDA events and device
-    ms from the profiler, against the plain version (blockwise),
+def flash_timing(shape, seed, window=None, kv_len=None, causal=True) -> dict:
+    """The flash kernel at one bf16 shape (B, S, H, Hkv, dh): causal, with
+    an optional sliding window, or with causal=False every query of S
+    over kv_len (default S) keys: ms per launch from CUDA events and
+    device ms from the profiler, against the plain version (blockwise),
     scaled_dot_product_attention (with the window as a boolean mask where
     there is one, and the name of the kernel it ran, which names its
     backend) and the bound (the function's work).  Its flash_row line adds
@@ -936,16 +970,17 @@ def flash_timing(shape, seed, window=None) -> dict:
     from repro_torch.models.attention import blockwise_attention
 
     B, S, H, Hkv, dh = shape
+    Sk = kv_len or S
     gen = torch.Generator(device=DEV).manual_seed(seed)
     q = randn(gen, (B, S, H, dh), torch.bfloat16)
-    k, v = (randn(gen, (B, S, Hkv, dh), torch.bfloat16) for _ in range(2))
+    k, v = (randn(gen, (B, Sk, Hkv, dh), torch.bfloat16) for _ in range(2))
     none = lambda: None
-    run = lambda: FA.flash_attention(q, k, v, causal=True, window=window)
+    run = lambda: FA.flash_attention(q, k, v, causal=causal, window=window)
     n0 = FA.launches
     ms = cuda_time_ms(run, none, 20)
     dev = device_ms(run, none, 10, "flash_fwd_wgmma")
     FA.launches = n0
-    plain = cuda_time_ms(lambda: blockwise_attention(q, k, v, causal=True,
+    plain = cuda_time_ms(lambda: blockwise_attention(q, k, v, causal=causal,
                                                      window=window),
                          none, 3, warm=1)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -955,14 +990,16 @@ def flash_timing(shape, seed, window=None) -> dict:
         mask = ((pos[None, :] <= pos[:, None])
                 & (pos[None, :] > pos[:, None] - window))
     sdpa = lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask, is_causal=mask is None, enable_gqa=True)
+        qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
+        enable_gqa=True)
     lib = cuda_time_ms(sdpa, none, 20)
     lib_trace = wall_and_device_ms(sdpa, 10)
-    # (query, key) pairs inside the causal window
+    # (query, key) pairs inside the causal window, or all of them
     qpos = np.arange(S)
-    pairs = int(np.minimum(qpos + 1, window or S).sum())
+    pairs = (int(np.minimum(qpos + 1, window or S).sum()) if causal
+             else S * Sk)
     ops = 4 * B * H * dh * pairs
-    nbytes = 2 * (2 * B * S * H * dh + 2 * B * S * Hkv * dh)
+    nbytes = 2 * (2 * B * S * H * dh + 2 * B * Sk * Hkv * dh)
     t_ops = 1e3 * ops / H100_BF16_OPS_PER_S
     t_bytes = 1e3 * nbytes / H100_HBM_BYTES_PER_S
     split_floor = 1.5 * t_ops
@@ -971,7 +1008,8 @@ def flash_timing(shape, seed, window=None) -> dict:
                library_kernel=lib_trace["top"][0][0] if lib_trace["top"] else None,
                bound_ms=max(t_ops, t_bytes),
                bound_by="operations" if t_ops >= t_bytes else "bytes",
-               shape=f"B={B} S={S} H={H} Hkv={Hkv} dh={dh} bf16 causal"
+               shape=f"B={B} S={S} H={H} Hkv={Hkv} dh={dh} bf16 "
+                     + ("causal" if causal else f"non-causal Sk={Sk}")
                      + (f" window={window}" if window else ""))
     if mask is not None:     # the window covers S here: SDPA's causal path
         row["library_causal_ms"] = cuda_time_ms(lambda: F.scaled_dot_product_attention(
@@ -2591,15 +2629,17 @@ REUSE_TOL = 1e-4      # a reused slot's log-probs against a fresh batcher's
 RECURRENT_SERVE = dict(batch=16, prefill=2048, tokens=64)
 
 
-def decode_rows(cfg, params, tokens, n_new, impl):
-    """Prefill `tokens` with `impl`, then n_new greedy decode steps;
+def decode_rows(cfg, params, tokens, n_new, impl, **inputs):
+    """Prefill `tokens` (with inputs: frames or patches) with `impl`, then
+    n_new greedy decode steps, the caches sized as serve sizes them;
     returns (the prefill's and each step's logits [B, n_new + 1, V], the
     prompt and the generated tokens [B, S + n_new])."""
     from repro_torch.models import lm, steps
 
     B, S = tokens.shape
-    caches = lm.init_caches(cfg, B, S + n_new + 8, DEV)
-    lg, caches = steps.make_prefill_step(cfg, impl=impl)(params, tokens, caches)
+    caches = lm.init_caches(cfg, B, cfg.vlm_patches + S + n_new + 8, DEV)
+    lg, caches = steps.make_prefill_step(cfg, impl=impl)(params, tokens, caches,
+                                                         **inputs)
     decode = steps.make_decode_step(cfg, impl=impl)
     rows, seq = [lg], [tokens]
     positions = torch.arange(S, S + n_new, device=DEV)
@@ -2610,13 +2650,13 @@ def decode_rows(cfg, params, tokens, n_new, impl):
     return torch.stack(rows, 1), torch.cat(seq, 1)
 
 
-def forward_rows(cfg, params, seq, start: int, impl):
-    """The teacher-forced full forward over seq, unembedded from row
-    `start` on (no [B, S, V] tensor)."""
+def forward_rows(cfg, params, seq, start: int, impl, **inputs):
+    """The teacher-forced full forward over seq (with inputs: frames or
+    patches), unembedded from row `start` on (no [B, S, V] tensor)."""
     from repro_torch.models import layers as L
     from repro_torch.models import lm
 
-    x, _ = lm.hidden_states(cfg, params, seq, impl=impl)
+    x, _ = lm.hidden_states(cfg, params, seq, impl=impl, **inputs)
     return L.unembed(cfg, params["embed"], x[:, start:])
 
 
@@ -2984,15 +3024,18 @@ def moe_dispatch_checks() -> dict:
     return dropped
 
 
-def teacher_rows(cfg, params, seq, S: int, impl):
-    """Prefill seq[:, :S] with `impl`, then decode seq[:, S:] a token a
-    step: the prefill's logits and each step's, [B, n + 1, V] for the n
-    tokens after S."""
+def teacher_rows(cfg, params, seq, S: int, impl, max_seq=None, **inputs):
+    """Prefill seq[:, :S] (with inputs: frames or patches) with `impl`,
+    then decode seq[:, S:] a token a step: the prefill's logits and each
+    step's, [B, n + 1, V] for the n tokens after S.  max_seq: the caches'
+    slots (default: a prefix's positions, seq's and 8 spare)."""
     from repro_torch.models import lm, steps
 
     B, n = seq.shape[0], seq.shape[1] - S
-    caches = lm.init_caches(cfg, B, seq.shape[1] + 8, DEV)
-    lg, caches = steps.make_prefill_step(cfg, impl=impl)(params, seq[:, :S], caches)
+    caches = lm.init_caches(cfg, B, max_seq or cfg.vlm_patches + seq.shape[1] + 8,
+                            DEV)
+    lg, caches = steps.make_prefill_step(cfg, impl=impl)(params, seq[:, :S],
+                                                         caches, **inputs)
     decode = steps.make_decode_step(cfg, impl=impl)
     rows = [lg]
     positions = torch.arange(S, S + n, device=DEV)
@@ -3252,6 +3295,259 @@ def phase_moe() -> dict:
             "flash_row": row}
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the encoder and the VLM prefix (whisper-small, paligemma-3b)
+# ---------------------------------------------------------------------------
+
+WHISPER_SERVE = dict(batch=16, prefill=384, tokens=64)
+PALIGEMMA_SERVE = dict(batch=16, prefill=2048, tokens=64)
+CARD_CPU_TOL = 1e-4    # the card's f32 forward against the CPU's
+LAUNCHER_MOVE = 1e-2   # the launcher-sized cache must move decode past this
+
+
+def stub_inputs(cfg, B: int, seed: int) -> dict:
+    """Seeded non-zero stub embeddings on the card, f32: frames [B,
+    n_frames, d] (whisper) or patches [B, P, d] (paligemma)."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    out = {}
+    if cfg.encoder is not None:
+        out["frames"] = torch.randn((B, cfg.encoder.n_frames, cfg.d_model),
+                                    generator=gen, device=DEV)
+    if cfg.vlm_patches:
+        out["patches"] = torch.randn((B, cfg.vlm_patches, cfg.d_model),
+                                     generator=gen, device=DEV)
+    return out
+
+
+def on_cpu(tree):
+    """A copy of a parameter tree (dicts and lists of tensors) on the CPU."""
+    if isinstance(tree, dict):
+        return {k: on_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [on_cpu(v) for v in tree]
+    return tree.cpu()
+
+
+def flash_per_prefill(cfg) -> int:
+    """Flash launches in one prefill by serve's route: one a GQA attention
+    layer, one more a cross-attention layer, one an encoder layer; none
+    on the blockwise route (MLA, a prefix)."""
+    from repro_torch.launch import serve
+
+    if serve.prefill_impl(cfg) != "flash":
+        return 0
+    cross = sum(spec.cross_attn for spec in cfg.layer_specs())
+    enc = cfg.encoder.n_layers if cfg.encoder is not None else 0
+    return attn_layers(cfg) + cross + enc
+
+
+def whisper_checks() -> int:
+    """(a) whisper-small at full width in an f32 copy (TF32 off), 4 prompts
+    of 384 tokens over seeded frames: the flash prefill (encoder,
+    self-attention and cross-attention on the kernel) within 1e-3 of the
+    naive prefill (the JAX package's path), argmax identical; 32 greedy
+    decode tokens, each row within 2e-3 of the teacher-forced forward
+    over the same frames (the cross K/V read back from the cache); the
+    card's forward of one prompt within 1e-4 of the port's on the CPU.
+    Returns the flash prefill's launches."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import lm, steps
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(configs.get_config(WHISPER), dtype="float32")
+    params = lm.init_params(cfg, torch.Generator(device=DEV).manual_seed(0), DEV)
+    B, S, n = 4, WHISPER_SERVE["prefill"], 32
+    tokens = torch.randint(0, cfg.vocab, (B, S), device=DEV,
+                           generator=torch.Generator(device=DEV).manual_seed(1))
+    frames = stub_inputs(cfg, B, 2)["frames"]
+    t0 = time.perf_counter()
+    FA.launches = 0
+    got, seq = decode_rows(cfg, params, tokens, n, "flash", frames=frames)
+    launches = FA.launches
+    caches = lm.init_caches(cfg, B, S + 8, DEV)
+    ln, _ = steps.make_prefill_step(cfg, impl="naive")(params, tokens, caches,
+                                                       frames=frames)
+    del caches
+    d = float((got[:, 0] - ln).abs().max())
+    agree = float((got[:, 0].argmax(-1) == ln.argmax(-1)).float().mean())
+    want = forward_rows(cfg, params, seq, S - 1, "naive", frames=frames)
+    check = against_forward("(a)", cfg, got, want, DECODE_TOL)
+    del got, want
+    card = lm.forward(cfg, params, tokens[:1], impl="flash",
+                      frames=frames[:1])[0].cpu()
+    cpu = lm.forward(cfg, on_cpu(params), tokens[:1].cpu(), impl="flash",
+                     frames=frames[:1].cpu())[0]
+    d_cpu = float((card - cpu).abs().max())
+    ok_cpu = bool((card - cpu).abs().le(CARD_CPU_TOL + CARD_CPU_TOL
+                                        * cpu.abs()).all())
+    emit(phase="encdec_whisper", arch=cfg.name, dtype="float32", tf32=False,
+         batch=B, prompt=S, frames=cfg.encoder.n_frames, flash_launches=launches,
+         flash_vs_naive_max_abs_diff=d, flash_vs_naive_argmax=agree,
+         decode_tokens=n, decode_vs_forward=check,
+         card_vs_cpu_max_abs_diff=d_cpu, card_vs_cpu_tol=CARD_CPU_TOL,
+         seconds=time.perf_counter() - t0)
+    if launches != flash_per_prefill(cfg):
+        raise AssertionError(f"whisper's flash prefill launched the kernel "
+                             f"{launches} times, not {flash_per_prefill(cfg)}")
+    if d > PREFILL_TOL or agree != 1.0:
+        raise AssertionError(f"whisper's f32 flash prefill differs from naive: "
+                             f"max |d logits| {d}, argmax agreement {agree}")
+    if not ok_cpu:
+        raise AssertionError(f"whisper's forward on the card differs from the "
+                             f"CPU's by {d_cpu}")
+    del params
+    return launches
+
+
+def paligemma_checks() -> dict:
+    """(b) paligemma-3b at full width in an f32 copy (TF32 off), 2 prompts
+    of 256 tokens behind 256 seeded patches: the blockwise prefix prefill
+    within 1e-3 of naive, argmax identical; 16 greedy decode tokens with
+    the serve-sized cache (P + prompt + new + 8), each row within 2e-3 of
+    the teacher-forced forward; the same tokens teacher-forced through
+    the JAX launcher's cache (prompt + new + 8, which the prefix overruns)
+    must move the decode rows off the forward by more than 1e-2."""
+    from repro_torch import configs
+    from repro_torch.models import lm, steps
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(configs.get_config(PALIGEMMA), dtype="float32")
+    params = lm.init_params(cfg, torch.Generator(device=DEV).manual_seed(0), DEV)
+    B, S, n, P = 2, 256, 16, cfg.vlm_patches
+    tokens = torch.randint(0, cfg.vocab, (B, S), device=DEV,
+                           generator=torch.Generator(device=DEV).manual_seed(1))
+    patches = stub_inputs(cfg, B, 2)["patches"]
+    t0 = time.perf_counter()
+    got, seq = decode_rows(cfg, params, tokens, n, "blockwise", patches=patches)
+    caches = lm.init_caches(cfg, B, P + S + 8, DEV)
+    ln, _ = steps.make_prefill_step(cfg, impl="naive")(params, tokens, caches,
+                                                       patches=patches)
+    del caches
+    d = float((got[:, 0] - ln).abs().max())
+    agree = float((got[:, 0].argmax(-1) == ln.argmax(-1)).float().mean())
+    want = forward_rows(cfg, params, seq, P + S - 1, "blockwise", patches=patches)
+    check = against_forward("(b)", cfg, got, want, DECODE_TOL)
+    launcher = teacher_rows(cfg, params, seq, S, "blockwise",
+                            max_seq=S + n + 8, patches=patches)
+    moved = float((launcher[:, 1:] - want[:, 1:]).abs().max())
+    out = dict(blockwise_vs_naive_max_abs_diff=d, blockwise_vs_naive_argmax=agree,
+               decode_vs_forward=check, launcher_cache_slots=S + n + 8,
+               serve_cache_slots=P + S + n + 8,
+               launcher_cache_decode_vs_forward=moved,
+               launcher_cache_prefill_row_diff=float(
+                   (launcher[:, 0] - want[:, 0]).abs().max()))
+    emit(phase="encdec_paligemma", arch=cfg.name, dtype="float32", tf32=False,
+         batch=B, patches=P, prompt=S, decode_tokens=n, **out,
+         launcher_move_bound=LAUNCHER_MOVE, seconds=time.perf_counter() - t0)
+    if d > PREFILL_TOL or agree != 1.0:
+        raise AssertionError(f"paligemma's blockwise prefix prefill differs "
+                             f"from naive: max |d logits| {d}, argmax {agree}")
+    if not moved > LAUNCHER_MOVE:
+        raise AssertionError(f"the launcher-sized cache moved decode only "
+                             f"{moved}: the prefix's positions are not held")
+    del params
+    return out
+
+
+def encdec_serve() -> dict:
+    """(c) serve.serve at both archs, bf16, with seeded stub inputs:
+    whisper-small 16 prompts of 384 tokens over 1,500 frames then 64
+    tokens, paligemma-3b 16 prompts of 2,048 tokens behind 256 patches
+    then 64 tokens; a warm run, then the timed one: prefill ms, decode
+    tokens/s, peak memory, the route, and the flash launches (36 for
+    whisper: 12 encoder layers, 12 self- and 12 cross-attentions; none
+    for the prefix)."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import serve
+
+    launches = {}
+    for arch, shape in ((WHISPER, WHISPER_SERVE), (PALIGEMMA, PALIGEMMA_SERVE)):
+        cfg = configs.get_config(arch)
+        B, S, T = shape["batch"], shape["prefill"], shape["tokens"]
+        inputs = stub_inputs(cfg, B, 3)
+        serve.serve(cfg, **shape, **inputs)        # warm: cuBLAS, allocator
+        FA.launches = 0
+        out = serve.serve(cfg, **shape, **inputs)
+        launches[arch] = FA.launches
+        toks = out["tokens"]
+        emit(phase="encdec_serve", arch=cfg.name,
+             shape=f"{B} x ({cfg.vlm_patches} + {S}) + {T}" if cfg.vlm_patches
+             else f"{B} x {S} + {T}, {cfg.encoder.n_frames} frames",
+             device=out["device"], route=out["prefill_impl"],
+             prefill_ms=1e3 * out["prefill_s"],
+             decode_tokens_per_s=B * T / out["decode_s"],
+             decode_ms_per_step=1e3 * out["decode_s"] / T,
+             req_per_s=out["req_per_s"], peak_gib=out["peak_bytes"] / 2**30,
+             flash_launches=launches[arch])
+        if launches[arch] != flash_per_prefill(cfg):
+            raise AssertionError(f"{arch}: serve prefill launched flash "
+                                 f"{launches[arch]} times, not "
+                                 f"{flash_per_prefill(cfg)}")
+        if toks.shape != (B, T + 1) or toks.min() < 0 \
+                or toks.max() >= cfg.padded_vocab:
+            raise AssertionError(f"{arch}: serve tokens out of shape or range")
+        del out, inputs
+        release()
+    return launches
+
+
+def encdec_costs():
+    """Where (c)'s time goes: one prefill and one decode step of each arch
+    at its serve shape, bf16, seeded random weights and stub inputs: ms
+    on the host's clock, device ms, busy share and the top kernels
+    (torch.profiler).  The prefill rewrites the same cache slots on every
+    call, the decode step slot S, so every call does the same work."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import lm, steps
+
+    for arch, shape in ((WHISPER, WHISPER_SERVE), (PALIGEMMA, PALIGEMMA_SERVE)):
+        cfg = configs.get_config(arch)
+        B, S, T = shape["batch"], shape["prefill"], shape["tokens"]
+        gen = torch.Generator(device=DEV).manual_seed(0)
+        params = lm.init_params(cfg, gen, DEV)
+        tokens = torch.randint(0, cfg.vocab, (B, S), device=DEV, generator=gen)
+        inputs = stub_inputs(cfg, B, 3)
+        caches = lm.init_caches(cfg, B, serve.cache_len(cfg, S, T), DEV)
+        impl = serve.prefill_impl(cfg)
+        pre = steps.make_prefill_step(cfg, impl=impl)
+        dec = steps.make_decode_step(cfg, impl=impl)
+        prefill = wall_and_device_ms(lambda: pre(params, tokens, caches, **inputs), 2)
+        pos = torch.tensor(S, device=DEV)
+        decode = wall_and_device_ms(lambda: dec(params, caches, tokens[:, :1], pos), 10)
+        emit(phase="encdec_costs", arch=cfg.name, route=impl,
+             shape=f"B={B} S={S} P={cfg.vlm_patches} {cfg.dtype}", prefill=prefill,
+             decode_step=decode)
+        del params, caches, inputs
+        release()
+
+
+def phase_encdec() -> dict:
+    """Phase 15: whisper-small and paligemma-3b at full width and depth.
+    Returns the flash kernel's launches on their paths and its rows at
+    whisper's encoder and cross-attention shapes."""
+    t_phase = time.perf_counter()
+    held = release()
+    f32_launches = whisper_checks()
+    release()
+    paligemma = paligemma_checks()
+    release()
+    serve_launches = encdec_serve()
+    encdec_costs()
+    B, S = WHISPER_SERVE["batch"], WHISPER_SERVE["prefill"]
+    n_frames, H, dh = 1500, 12, 64
+    rows = {"encoder": flash_timing((B, n_frames, H, H, dh), 6, causal=False),
+            "cross": flash_timing((B, S, H, H, dh), 7, kv_len=n_frames,
+                                  causal=False)}
+    emit(phase="encdec", seconds=time.perf_counter() - t_phase,
+         held_gib_at_start=held,
+         launcher_cache_decode_vs_forward=paligemma[
+             "launcher_cache_decode_vs_forward"])
+    return {"serve": serve_launches, "prefill_f32": f32_launches, "rows": rows}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3300,6 +3596,12 @@ def main() -> int:
     kernels[2]["launches_deepseek_serve"] = moe["serve"][DEEPSEEK]
     kernels[2]["launches_mixtral_f32_prefill"] = moe["prefill_f32"]
     kernels[2]["launches_mixtral_mcts"] = moe["mcts"]["flash_attention"]
+    encdec = phase_encdec()
+    kernels[2]["at_whisper_encoder"] = encdec["rows"]["encoder"]
+    kernels[2]["at_whisper_cross"] = encdec["rows"]["cross"]
+    kernels[2]["launches_whisper_serve"] = encdec["serve"][WHISPER]
+    kernels[2]["launches_paligemma_serve"] = encdec["serve"][PALIGEMMA]
+    kernels[2]["launches_whisper_f32_prefill"] = encdec["prefill_f32"]
     for row in kernels[:2]:
         row["launches_serving"] = serving["launches"][row["name"]]
         row["launches_fused"] = {f"K{K}": fused_launches[K][row["name"]]

@@ -1,11 +1,12 @@
 """Architecture registry of the port (mirrors repro.configs).
 
-Each ported arch has its own module exporting CONFIG (the published
-numbers) and SMOKE (a reduced config of the same family for CPU tests).
-The dense GQA archs, mamba2 (SSD), recurrentgemma (RG-LRU with local
-attention), mixtral (MoE) and deepseek-v3 (MLA, MoE with a shared expert,
-the MTP head) are ported (``ARCH_IDS``); asking for another raises
-``NotImplementedError`` naming the ROADMAP.md item that ports it.
+Each arch has its own module exporting CONFIG (the published numbers)
+and SMOKE (a reduced config of the same family for CPU tests).  All ten
+of the JAX package's archs are ported (``ARCH_IDS``): the dense GQA
+archs, mamba2 (SSD), recurrentgemma (RG-LRU with local attention),
+mixtral (MoE), deepseek-v3 (MLA, MoE with a shared expert, the MTP head),
+whisper-small (the encoder and cross-attention) and paligemma-3b (the
+VLM prefix).
 The MCTS benchmark configs of the paper itself live in pong.py /
 gomoku_cfg.py, outside the registry.
 """
@@ -28,10 +29,9 @@ CANON = {
     "mixtral-8x22b": "mixtral_8x22b",
 }
 
-# the archs get_config returns (repro.configs.ARCH_IDS has all ten)
 ARCH_IDS = ("llama3_2_1b", "gemma3_12b", "starcoder2_3b", "granite_3_8b",
             "mamba2_2_7b", "recurrentgemma_9b", "deepseek_v3_671b",
-            "mixtral_8x22b")
+            "mixtral_8x22b", "whisper_small", "paligemma_3b")
 
 
 def normalize(arch: str) -> str:
@@ -39,11 +39,5 @@ def normalize(arch: str) -> str:
 
 
 def get_config(arch: str, smoke: bool = False):
-    name = normalize(arch)
-    if name not in ARCH_IDS:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported yet: the port has {ARCH_IDS}; the "
-            f"encoder (whisper) and the VLM prefix (paligemma) are ROADMAP.md "
-            f"queue A item 8")
-    mod = importlib.import_module(f"repro_torch.configs.{name}")
+    mod = importlib.import_module(f"repro_torch.configs.{normalize(arch)}")
     return mod.SMOKE if smoke else mod.CONFIG

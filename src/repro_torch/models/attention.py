@@ -1,11 +1,13 @@
-"""Attention on torch: GQA (full / sliding-window / prefix-causal) with KV
-caches for serving (the GQA half of repro.models.attention).
+"""Attention on torch (the port of repro.models.attention): GQA (full /
+sliding-window / prefix-causal), MLA (deepseek-v3) and cross-attention
+(whisper), with KV caches for serving.
 
 Compute paths of a prefill (a forward with S > 1), chosen by ``impl``:
   * "flash": the hand-written CUDA kernel (kernels/flash_attention.py),
     the Hopper port of the JAX package's Pallas flash kernel.  On a CPU
     tensor its wrapper runs the plain version, ``naive_attention``.  It
-    has no prefix mask, so a VLM config raises.
+    has no prefix mask (nor has the Pallas kernel), so a VLM config
+    (paligemma's image prefix) raises: its prefill runs blockwise.
   * "blockwise": the online softmax over 512-key blocks as a Python loop
     (the JAX package's lax.scan), O(S) memory.
   * "naive": materialized scores, small shapes and tests.
@@ -38,7 +40,14 @@ on every path.  Two choices differ from the JAX package:
     its v head dim (128), and the kernel takes one head dim for all
     three, so ``impl="flash"`` on MLA means blockwise, as above.
 
-Cross-attention waits for its slice (ROADMAP.md queue A item 8).
+Cross-attention (whisper's decoder, ``cross_attn_forward``) attends the
+decoder's queries over K/V projected once from the encoder output
+(``encode_cross_kv``), with no mask: a prefill runs the flash kernel
+non-causally under ``impl="flash"`` (Sq != Sk), otherwise, as the JAX
+package does, naive over at most 2,048 keys and blockwise beyond; a
+decode step (Sq = 1) is plain torch for every ``impl``.  The encoder's
+own self-attention (``encoder_attn_forward``, RoPE on q/k) takes the
+same route (``attend_all``).
 """
 
 from __future__ import annotations
@@ -59,24 +68,32 @@ IMPLS = ("naive", "blockwise", "flash")
 # ------------------------------------------------------------------ init
 
 def init_attn(cfg, gen, spec) -> dict:
-    if spec.cross_attn:
-        raise NotImplementedError(
-            "cross-attention is not ported yet (ROADMAP.md queue A item 8)")
+    """One layer's attention weights; with ``spec.cross_attn`` also the
+    cross-attention's ``xq``/``xk``/``xv``/``xo`` and its norm ``xnorm``,
+    drawn after the self-attention's as in the JAX package."""
     d, H, Hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     s, so = 1.0 / math.sqrt(d), 1.0 / math.sqrt(H * dh)
     if cfg.attn_impl == "mla":
         qh = cfg.qk_nope_dim + cfg.qk_rope_dim
         rq, rkv = cfg.q_lora_rank, cfg.kv_lora_rank
-        return {"wq_a": L.normal(gen, (d, rq), L.dt(cfg), s),
-                "wq_b": L.normal(gen, (rq, H, qh), L.dt(cfg), 1.0 / math.sqrt(rq)),
-                "wkv_a": L.normal(gen, (d, rkv + cfg.qk_rope_dim), L.dt(cfg), s),
-                "wkv_b": L.normal(gen, (rkv, H, cfg.qk_nope_dim + cfg.v_head_dim),
-                                  L.dt(cfg), 1.0 / math.sqrt(rkv)),
-                "wo": L.normal(gen, (H, cfg.v_head_dim, d), L.dt(cfg), so)}
-    return {"wq": L.normal(gen, (d, H, dh), L.dt(cfg), s),
-            "wk": L.normal(gen, (d, Hkv, dh), L.dt(cfg), s),
-            "wv": L.normal(gen, (d, Hkv, dh), L.dt(cfg), s),
-            "wo": L.normal(gen, (H, dh, d), L.dt(cfg), so)}
+        p = {"wq_a": L.normal(gen, (d, rq), L.dt(cfg), s),
+             "wq_b": L.normal(gen, (rq, H, qh), L.dt(cfg), 1.0 / math.sqrt(rq)),
+             "wkv_a": L.normal(gen, (d, rkv + cfg.qk_rope_dim), L.dt(cfg), s),
+             "wkv_b": L.normal(gen, (rkv, H, cfg.qk_nope_dim + cfg.v_head_dim),
+                               L.dt(cfg), 1.0 / math.sqrt(rkv)),
+             "wo": L.normal(gen, (H, cfg.v_head_dim, d), L.dt(cfg), so)}
+    else:
+        p = {"wq": L.normal(gen, (d, H, dh), L.dt(cfg), s),
+             "wk": L.normal(gen, (d, Hkv, dh), L.dt(cfg), s),
+             "wv": L.normal(gen, (d, Hkv, dh), L.dt(cfg), s),
+             "wo": L.normal(gen, (H, dh, d), L.dt(cfg), so)}
+    if spec.cross_attn:
+        p.update(xq=L.normal(gen, (d, H, dh), L.dt(cfg), s),
+                 xk=L.normal(gen, (d, Hkv, dh), L.dt(cfg), s),
+                 xv=L.normal(gen, (d, Hkv, dh), L.dt(cfg), s),
+                 xo=L.normal(gen, (H, dh, d), L.dt(cfg), so),
+                 xnorm=L.init_norm(cfg, gen.device))
+    return p
 
 
 # ----------------------------------------------------- blockwise attention
@@ -248,6 +265,47 @@ def attn_forward(cfg, spec, p, x, positions, cache=None, impl="blockwise"):
                 "impl='flash' has no prefix mask (nor has the Pallas kernel)")
         out = FA.flash_attention(q, k, v, causal=True, window=spec.window)
     return _proj_out(out, p["wo"]), cache
+
+
+def attend_all(q, k, v, impl):
+    """Attention of every query over every key, no mask (the encoder's
+    self-attention and cross-attention): the flash kernel run
+    non-causally for a prefill under ``impl="flash"``; otherwise, and for
+    a decode step (Sq = 1), the JAX package's choice: naive over at most
+    2,048 keys, blockwise beyond."""
+    if impl == "flash" and q.shape[1] > 1:
+        return FA.flash_attention(q, k, v, causal=False)
+    if k.shape[1] <= 2048:
+        return naive_attention(q, k, v, causal=False)
+    return blockwise_attention(q, k, v, causal=False)
+
+
+def encoder_attn_forward(cfg, p, x, positions, impl="blockwise"):
+    """The whisper encoder's self-attention: RoPE on q/k (as the JAX
+    package's lm.encode does), every frame attending every frame.
+    x: [B,T,d] -> [B,T,d]."""
+    if impl not in IMPLS:
+        raise ValueError(f"impl {impl!r} not in {IMPLS}")
+    q = L.rope(_proj_in(x, p["wq"]), positions, cfg.rope_theta)
+    k = L.rope(_proj_in(x, p["wk"]), positions, cfg.rope_theta)
+    return _proj_out(attend_all(q, k, _proj_in(x, p["wv"]), impl), p["wo"])
+
+
+def cross_attn_forward(cfg, p, x, enc_kv, impl="blockwise"):
+    """Whisper's decoder cross-attention.  x: [B,S,d] (normed by
+    ``xnorm``); enc_kv = (k, v) from encode_cross_kv, computed at prefill
+    from the encoder output (or read back from the cache at decode)."""
+    if impl not in IMPLS:
+        raise ValueError(f"impl {impl!r} not in {IMPLS}")
+    k, v = enc_kv
+    out = attend_all(_proj_in(x, p["xq"]), k, v, impl)
+    return _proj_out(out, p["xo"])
+
+
+def encode_cross_kv(cfg, p, enc_out):
+    """The cross-attention's K and V [B, T, Hkv, dh] from the encoder
+    output [B, T, d] (no RoPE)."""
+    return _proj_in(enc_out, p["xk"]), _proj_in(enc_out, p["xv"])
 
 
 # ------------------------------------------------------------------ cache

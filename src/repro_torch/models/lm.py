@@ -1,5 +1,5 @@
-"""Model assembly on torch: the decoder LM of repro.models.lm for the
-dense, SSD, RG-LRU, MoE and MLA families.
+"""Model assembly on torch: the decoder LM of repro.models.lm for all
+ten of its archs.
 
 Parameters are a plain dict with the JAX package's layout: ``embed``
 (``tok [V, d]`` f32, ``out`` when untied), ``g{i}`` for each
@@ -8,17 +8,27 @@ dicts whose tensors are stacked ``[repeats, ...]`` — and ``final_norm``.
 The layer loop is a Python loop over groups, repeats and positions (the
 JAX package's lax.scan); each layer reads views ``[r]`` of the stacks.
 With ``cfg.mtp`` the tree also holds ``mtp`` (``proj``, an unstacked
-dense ``block`` and ``norm``), the multi-token-prediction head.
+dense ``block`` and ``norm``), the multi-token-prediction head; with
+``cfg.encoder`` it holds ``encoder`` (stacked ``layers`` and ``norm``),
+and each cross-attention layer's ``mix`` holds ``xq``/``xk``/``xv``/``xo``
+and ``xnorm``.
 Caches have the same stacked layout and are written in place: ``k``/``v``
 for attention, ``c`` (the latent) for MLA, ``conv``/``state`` for SSD,
 ``conv``/``h`` for RG-LRU (``RECURRENT_LEAVES`` are the ones a new
-sequence must start from zero).
+sequence must start from zero), ``xk``/``xv`` (the cross-attention's K/V
+over the encoder output, written by the prefill, read by decode).
 
 Covered: dense GQA stacks (llama / starcoder2 / granite), local:global
 patterns (gemma3), SSD stacks (mamba2), RG-LRU with local attention
-(recurrentgemma), MoE layers (mixtral) and MLA with MoE, a shared expert
-and the MTP head (deepseek-v3).  The VLM prefix, the encoder and its
-cross-attention raise ``NotImplementedError`` (ROADMAP.md queue A item 8).
+(recurrentgemma), MoE layers (mixtral), MLA with MoE, a shared expert
+and the MTP head (deepseek-v3), the encoder and cross-attention over
+stub frame embeddings (whisper: ``frames`` [B, T, d], or ``enc_out``)
+and the VLM prefix of stub patch embeddings (paligemma: ``patches``
+[B, P, d] ahead of the tokens, attended bidirectionally).  As in the JAX
+package, the encoder applies RoPE to its q/k (whisper's published model
+has sinusoidal embeddings); a prefix puts the patches at positions
+0..P-1, so a decode cache must hold P + prompt + new tokens (the JAX
+launcher sizes it without P; launch/serve.py says what that costs).
 
 ``from_jax_params`` carries the JAX package's ``init_params`` tree (as
 numpy) across, bf16 leaves included, bit for bit.
@@ -38,8 +48,9 @@ from repro_torch.models.config import LayerSpec, ModelConfig
 
 KINDS = ("attn", "ssd", "rglru")
 MLPS = ("dense", "moe", "none")
-# the MTP head's block (the JAX package's lm.mtp_logits)
-MTP_SPEC = LayerSpec(kind="attn", window=None, mlp="dense")
+# the MTP head's block (the JAX package's lm.mtp_logits) and an encoder
+# layer (lm.encode)
+MTP_SPEC = ENC_SPEC = LayerSpec(kind="attn", window=None, mlp="dense")
 RECURRENT_LEAVES = ("conv", "state", "h")
 
 
@@ -47,20 +58,16 @@ def _check_supported(cfg: ModelConfig):
     missing = []
     if cfg.attn_impl not in ("gqa", "mla"):
         missing.append(f"attn_impl={cfg.attn_impl}")
-    if cfg.encoder is not None:
-        missing.append("encoder")
-    if cfg.vlm_patches:
-        missing.append("vlm_patches")
     for pattern, _ in cfg.groups:
         for spec in pattern:
             if spec.kind not in KINDS or spec.mlp not in MLPS \
-                    or spec.cross_attn:
+                    or (spec.cross_attn and cfg.encoder is None):
                 missing.append(f"{spec}")
     if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {sorted(set(missing))} not ported yet (the port has "
-            f"dense GQA, MLA, SSD, RG-LRU, MoE and MTP; the VLM prefix and the "
-            f"encoder are ROADMAP.md queue A item 8)")
+        raise ValueError(
+            f"{cfg.name}: {sorted(set(missing))} is not an LM of the JAX "
+            f"package (attention gqa / mla, mixers {KINDS}, MLPs {MLPS}, "
+            f"cross-attention only with an encoder)")
 
 
 # ------------------------------------------------------------------ init
@@ -135,6 +142,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device) -> dict:
         p[f"g{gi}"] = [_init_stack(cfg, spec, generator, repeats, device)
                        for spec in pattern]
     p["final_norm"] = L.init_norm(cfg, generator.device)
+    if cfg.encoder is not None:
+        p["encoder"] = {"layers": _init_stack(cfg, ENC_SPEC, generator,
+                                              cfg.encoder.n_layers, device),
+                        "norm": L.init_norm(cfg, generator.device)}
     if cfg.mtp:
         p["mtp"] = {"proj": L.normal(generator, (2 * cfg.d_model, cfg.d_model),
                                      L.dt(cfg), 0.01),
@@ -176,12 +187,14 @@ def _at(tree, r: int):
 
 # ------------------------------------------------------------------ block
 
-def _block(cfg, spec: LayerSpec, p, x, positions, cache, impl):
+def _block(cfg, spec: LayerSpec, p, x, positions, cache, impl, enc_out=None):
     """One layer; returns (x, the MoE aux loss or None)."""
     h = L.norm(cfg, p["norm_in"], x)
     if spec.kind == "attn":
         mix, cache = A.attn_forward(cfg, spec, p["mix"], h, positions, cache,
                                     impl)
+        if spec.cross_attn:
+            mix = mix + _cross(cfg, p["mix"], x, cache, enc_out, impl)
     elif spec.kind == "ssd":
         mix, cache = SSD.ssd_forward(cfg, p["mix"], h, cache)
     else:
@@ -198,38 +211,81 @@ def _block(cfg, spec: LayerSpec, p, x, positions, cache, impl):
     return x, aux
 
 
+def _cross(cfg, p, x, cache, enc_out, impl):
+    """A decoder layer's cross-attention over the encoder output: its K/V
+    projected from enc_out (a prefill or a forward, stored in the cache
+    when there is one) or read from the cache (decode).  Normed by
+    ``xnorm`` from the block's input x, as the JAX package does."""
+    if enc_out is not None:
+        kv = A.encode_cross_kv(cfg, p, enc_out)
+        if cache is not None:
+            cache["xk"].copy_(kv[0])
+            cache["xv"].copy_(kv[1])
+    elif cache is not None:
+        kv = (cache["xk"], cache["xv"])
+    else:
+        raise ValueError(f"{cfg.name}: cross-attention needs frames, enc_out "
+                         f"or a cache that a prefill with frames wrote")
+    return A.cross_attn_forward(cfg, p, L.norm(cfg, p["xnorm"], x), kv, impl)
+
+
+def encode(cfg: ModelConfig, params, frames, impl="blockwise"):
+    """The whisper encoder over stub frame embeddings [B, T, d]: layers of
+    non-causal self-attention (RoPE on q/k, as the JAX package does) and
+    a dense MLP, then the encoder's norm; [B, T, d] in cfg.dtype."""
+    T = frames.shape[1]
+    positions = torch.arange(T, dtype=torch.int32, device=frames.device)
+    x = frames.to(L.dt(cfg))
+    stack = params["encoder"]["layers"]
+    for r in range(cfg.encoder.n_layers):
+        p = _at(stack, r)
+        h = L.norm(cfg, p["norm_in"], x)
+        x = x + A.encoder_attn_forward(cfg, p["mix"], h, positions,
+                                       impl).to(x.dtype)
+        x = x + L.mlp(cfg, p["mlp"], L.norm(cfg, p["norm_mlp"], x)).to(x.dtype)
+    return L.norm(cfg, params["encoder"]["norm"], x)
+
+
 def hidden_states(cfg: ModelConfig, params, tokens, positions=None, caches=None,
-                  impl="blockwise"):
-    """The trunk: (final-normed hidden states [B, S, d], the sum of the
-    MoE layers' aux losses, f32); caches are written in place."""
+                  impl="blockwise", patches=None, frames=None, enc_out=None):
+    """The trunk: (final-normed hidden states [B, P + S, d], the sum of
+    the MoE layers' aux losses, f32); caches are written in place.
+
+    patches: [B, P, d] stub patch embeddings put ahead of the scaled
+    token embeddings (paligemma); frames: [B, T, d] stub frame embeddings
+    the encoder runs over, or enc_out, its output (whisper)."""
     x = L.embed(cfg, params["embed"], tokens)
+    if patches is not None:
+        x = torch.cat([patches.to(x.dtype), x], dim=1)
     if positions is None:
         positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    if cfg.encoder is not None and enc_out is None and frames is not None:
+        enc_out = encode(cfg, params, frames, impl)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for gi, (pattern, repeats) in enumerate(cfg.groups):
         for r in range(repeats):
             for i, spec in enumerate(pattern):
                 c = None if caches is None else _at(caches[f"g{gi}"][i], r)
                 x, a = _block(cfg, spec, _at(params[f"g{gi}"][i], r), x,
-                              positions, c, impl)
+                              positions, c, impl, enc_out)
                 if a is not None:
                     aux = aux + a
     return L.norm(cfg, params["final_norm"], x), aux
 
 
 def forward(cfg: ModelConfig, params, tokens, positions=None, caches=None,
-            impl="blockwise", patches=None, frames=None, return_hidden=False):
-    """tokens [B, S] -> (logits [B, S, V] f32, caches, aux_loss[, hidden]).
+            impl="blockwise", patches=None, frames=None, enc_out=None,
+            return_hidden=False):
+    """tokens [B, S] -> (logits [B, P + S, V] f32, caches, aux_loss[,
+    hidden]).
 
-    positions: [S] shared (default arange) or [B, S] per row; caches from
-    init_caches or None.  The caches are updated in place and returned.
+    positions: [P + S] shared (default arange) or [B, P + S] per row;
+    caches from init_caches or None.  The caches are updated in place and
+    returned.  patches / frames / enc_out: see hidden_states.
     return_hidden: also return the final-normed hidden states (the MTP
     head's input)."""
-    if patches is not None or frames is not None:
-        raise NotImplementedError(
-            "VLM patches and encoder frames are not ported yet (ROADMAP.md "
-            "queue A item 8)")
-    x, aux = hidden_states(cfg, params, tokens, positions, caches, impl)
+    x, aux = hidden_states(cfg, params, tokens, positions, caches, impl,
+                           patches, frames, enc_out)
     logits = L.unembed(cfg, params["embed"], x)
     if return_hidden:
         return logits, caches, aux, x
@@ -264,7 +320,12 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int, device) -> dict:
 
 def _init_cache(cfg, spec: LayerSpec, batch, max_seq, device) -> dict:
     if spec.kind == "attn":
-        return A.init_cache(cfg, spec, batch, max_seq, device)
+        c = A.init_cache(cfg, spec, batch, max_seq, device)
+        if spec.cross_attn:
+            shape = (batch, cfg.encoder.n_frames, cfg.n_kv_heads, cfg.head_dim)
+            c["xk"] = torch.zeros(shape, dtype=L.dt(cfg), device=device)
+            c["xv"] = torch.zeros(shape, dtype=L.dt(cfg), device=device)
+        return c
     if spec.kind == "ssd":
         return SSD.init_ssd_cache(cfg, batch, device)
     return R.init_rglru_cache(cfg, batch, device)

@@ -17,11 +17,15 @@ from repro_torch.models.config import ModelConfig
 
 
 def make_prefill_step(cfg: ModelConfig, impl: str = "blockwise"):
-    """prefill(params, tokens [B, S], caches) -> (last_logits [B, V],
-    caches)."""
+    """prefill(params, tokens [B, S], caches, patches=None, frames=None)
+    -> (last_logits [B, V], caches).  patches [B, P, d] (paligemma) go
+    ahead of the tokens, so the caches must hold P + S positions; frames
+    [B, T, d] (whisper) run through the encoder, and its cross K/V is
+    stored in the caches for decode."""
 
-    def prefill(params, tokens, caches):
-        x, _ = lm.hidden_states(cfg, params, tokens, caches=caches, impl=impl)
+    def prefill(params, tokens, caches, patches=None, frames=None):
+        x, _ = lm.hidden_states(cfg, params, tokens, caches=caches, impl=impl,
+                                patches=patches, frames=frames)
         return L.unembed(cfg, params["embed"], x[:, -1]), caches
 
     return prefill
@@ -30,7 +34,9 @@ def make_prefill_step(cfg: ModelConfig, impl: str = "blockwise"):
 def make_decode_step(cfg: ModelConfig, impl: str = "blockwise"):
     """decode(params, caches, token [B, 1], pos) -> (logits [B, V], caches).
     pos: [] (synchronized batch) or [B] (ragged continuous batching), an
-    integer tensor on the params' device."""
+    integer tensor on the params' device: the token's index among the
+    text tokens (a VLM prefix's P positions are added).  Whisper's
+    cross-attention reads the K/V the prefill stored in the caches."""
 
     def decode(params, caches, token, pos):
         positions = pos[..., None].int()

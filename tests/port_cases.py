@@ -29,8 +29,9 @@ repro_torch (no copy of it exists).  The rewrite:
     make CPU tensors, so a body that jits a device twin runs the port's
     twin.  In tests/test_models_smoke.py ``jax.random.randint`` draws
     JAX's numbers into a torch tensor and the few ``jnp`` calls the bodies
-    make on tokens and logits are torch's, so a body's prefill and decode
-    run the port's steps on the JAX package's weights and tokens.  In
+    make on tokens, frames, patches and logits are torch's, so a body's
+    prefill and decode run the port's steps on the JAX package's weights
+    and tokens.  In
     tests/test_serving.py ``jnp`` is torch's for the same few calls, so its
     ``greedy_reference`` decodes with the port; tests/test_batcher.py's
     ``greedy_reference`` (imported from test_serving, a test module the
@@ -165,10 +166,10 @@ jax_key_lm = _JaxKeyLM()
 
 
 def _jit(fn):
-    def run(*args):
-        return fn(*[torch.as_tensor(np.asarray(a))
-                    if isinstance(a, (np.ndarray, np.generic)) else a
-                    for a in args])
+    def run(*args, **kwargs):
+        conv = lambda a: (torch.as_tensor(np.asarray(a))
+                          if isinstance(a, (np.ndarray, np.generic)) else a)
+        return fn(*map(conv, args), **{k: conv(v) for k, v in kwargs.items()})
     return run
 
 
@@ -195,7 +196,9 @@ JAX_MODELS_SHIM = types.SimpleNamespace(
 JNP_MODELS_SHIM = types.SimpleNamespace(
     asarray=lambda x: torch.as_tensor(np.asarray(x)), argmax=torch.argmax,
     roll=torch.roll, stack=torch.stack, float32=torch.float32,
-    ones=lambda shape, dtype=torch.float32: torch.ones(shape, dtype=dtype))
+    ones=lambda shape, dtype=torch.float32: torch.ones(shape, dtype=dtype),
+    full=lambda shape, value, dtype=torch.float32: torch.full(
+        shape, value, dtype=dtype))
 JNP_SERVING_SHIM = types.SimpleNamespace(
     asarray=lambda x, dtype=None: torch.as_tensor(np.asarray(x), dtype=dtype),
     argmax=torch.argmax, int32=torch.int32)

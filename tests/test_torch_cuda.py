@@ -20,14 +20,18 @@ The flash-attention kernel is held to its plain version at the JAX flash
 test's tolerances (f32 2e-5, bf16 2e-2); in bf16 also to the plain version
 run in f32 on the same inputs, within one bf16 rounding of the output,
 over every head dim, the LM paths' short rows, windows, non-causal
-Sq != Sk, fused-projection views and recurrentgemma-9b's local MQA
-(Hkv=1, dh=256, window 2048); a misaligned bf16 stride raises.
+Sq != Sk, fused-projection views, recurrentgemma-9b's local MQA
+(Hkv=1, dh=256, window 2048) and whisper-small's non-causal encoder and
+cross-attention (Sk = 1,500, not a multiple of the key tile); a
+misaligned bf16 stride raises.
 The SSD and RG-LRU mixers (plain torch) on the card against the CPU, at
 SMOKE width and one full-width layer, and a reused batcher slot over both
 recurrent archs against a fresh batcher.  The MoE dispatch on the card
 against the CPU at the published E and K (every integer identical), and
 the MoE layer, MLA (prefill, decode decompressed and absorbed) and the
-whole SMOKE mixtral / deepseek-v3 on the card against the CPU.
+whole SMOKE mixtral / deepseek-v3 on the card against the CPU; the SMOKE
+whisper-small and paligemma-3b's prefill (frames, patches) and decode on
+the card against the CPU.
 """
 
 import numpy as np
@@ -180,6 +184,9 @@ FLASH_CASES = [  # B, Sq, Sk, H, Hkv, dh, causal, window
     (1, 2048, 2048, 16, 1, 256, True, 2048),  # recurrentgemma-9b's local MQA
     (1, 43, 43, 48, 8, 128, True, 4096),     # mixtral-8x22b: MCTS forwards
     (4, 512, 512, 48, 8, 128, True, 4096),   # and chip_smoke's f32 prefill
+    (2, 1500, 1500, 12, 12, 64, False, None),  # whisper-small: its encoder,
+    (2, 384, 1500, 12, 12, 64, False, None),  # cross-attention over the
+    (2, 384, 384, 12, 12, 64, True, None),    # frames, decoder self-attention
 ]
 
 
@@ -1025,3 +1032,54 @@ def test_moe_model_on_card_matches_cpu(arch):
     assert FA.launches - n == (cfg.n_layers if cfg.attn_impl == "gqa" else 0)
     torch.testing.assert_close(gl.cpu(), cl, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(ga.cpu(), ca, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["whisper-small", "paligemma-3b"])
+def test_encdec_prefill_decode_on_card_matches_cpu(arch):
+    """The SMOKE model, f32 with TF32 off, by serve's route: a 16-token
+    prefill with seeded frames (whisper: the flash kernel in every
+    encoder layer, decoder self-attention and cross-attention) or
+    patches (paligemma: blockwise, no launch), then 4 teacher-forced
+    decode steps at serve's cache size; every row on the card within
+    1e-4 of the CPU."""
+    need_cuda()
+    from repro_torch import configs
+    from repro_torch.envs.policy_net import exact_f32
+    from repro_torch.launch import serve
+    from repro_torch.models import lm, steps
+
+    cfg = configs.get_config(arch, smoke=True)
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.RandomState(4)
+    seq = torch.tensor(rng.randint(0, cfg.vocab, (2, 20)))
+    extra = {}
+    if cfg.encoder is not None:
+        extra["frames"] = torch.tensor(
+            rng.randn(2, cfg.encoder.n_frames, cfg.d_model), dtype=torch.float32)
+    if cfg.vlm_patches:
+        extra["patches"] = torch.tensor(
+            rng.randn(2, cfg.vlm_patches, cfg.d_model), dtype=torch.float32)
+    impl = serve.prefill_impl(cfg)
+
+    def rows(dev):
+        p = _on(params, dev)
+        caches = lm.init_caches(cfg, 2, serve.cache_len(cfg, 16, 4), dev)
+        lg, caches = steps.make_prefill_step(cfg, impl=impl)(
+            p, seq[:, :16].to(dev), caches, **_on(extra, dev))
+        out = [lg]
+        dec = steps.make_decode_step(cfg, impl=impl)
+        for i in range(16, 20):
+            lg, caches = dec(p, caches, seq[:, i:i + 1].to(dev),
+                             torch.tensor(i, device=dev))
+            out.append(lg)
+        return torch.stack(out, 1)
+
+    with exact_f32():
+        want = rows("cpu")
+        n = FA.launches
+        got = rows("cuda")
+        torch.cuda.synchronize()
+    enc = cfg.encoder.n_layers + 2 * cfg.n_layers if cfg.encoder else 0
+    assert FA.launches - n == enc
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)

@@ -58,6 +58,8 @@ def test_import_loads_no_jax_module():
         "import repro_torch.configs.granite_3_8b\n"
         "import repro_torch.models.moe, repro_torch.configs.mixtral_8x22b\n"
         "import repro_torch.configs.deepseek_v3_671b\n"
+        "import repro_torch.configs.whisper_small\n"
+        "import repro_torch.configs.paligemma_3b\n"
         "import repro_torch.envs.gomoku, repro_torch.envs.policy_net\n"
         "import repro_torch.sim.server, repro_torch.sim.cache\n"
         "import repro_torch.configs.gomoku_cfg, repro_torch.configs.pong\n"
