@@ -69,8 +69,8 @@ Phases (each raises on any failure, so the exit code is not 0):
      boolean mask, the kernel it ran named, and SDPA's causal path);
   8. the paper's MCTS with the LM as its simulation at full width, bf16:
      TreeParallelMCTS(X=256, F=6, D=4, p=16) over LMTreeEnv and
-     LMContinuationBackend, two run_step() calls (the second re-rooting),
-     held superstep by superstep against the numpy oracle executor
+     LMContinuationBackend, two run_step() calls of at most 16
+     supersteps (the second re-rooting), held superstep by superstep against the numpy oracle executor
      replaying the recorded env steps and values; then where its
      superstep goes (one expansion's forward, a decode step, the host
      numpy work per vocabulary row), with device busy shares;
@@ -108,7 +108,7 @@ Phases (each raises on any failure, so the exit code is not 0):
      sub-arenas, the kernels' launches equal to the replays plus the
      eager launches, and retired pools freeing their memory;
      searches/s, ms per dispatch by part, and the device's busy share
-     over a profiled window of 40 ticks; then ten alternating pairs of
+     over a profiled window of 40 ticks; then four alternating pairs of
      the stream at K=1 and K=8, each held to the oracle, for the ratio
      of their speeds;
  11. pipelined gangs and sharded pools on phase 9's stream: (a) the
@@ -123,7 +123,7 @@ Phases (each raises on any failure, so the exit code is not 0):
      with phase 9's compaction and at K=8, equal to phase 9's oracle
      results, each tree kernel launched once per shard with an active
      slot per phase-path tick plus the fused replays and captures;
-     (c) three alternating pairs of the stream, overlap against
+     (c) one pair of the stream, overlap against
      lock-step at K=1 (both with pool expansion), each held to its
      oracle, for the ratio of their speeds, searches/s, the
      service_overlap_busy_ratio gauges and the graph captures; (d) no
@@ -144,7 +144,7 @@ Phases (each raises on any failure, so the exit code is not 0):
      SearchClient (G=8) over CachedSimBackend(SimServer(max_batch=64)),
      equal to a numpy-oracle client's, cache off equal to cache on with
      cache hits, every forward 64 rows, K=8 equal to K=1; (e) the stream
-     with overlap=True, two gangs, held to an overlap oracle, and three
+     with overlap=True, two gangs, held to an overlap oracle, and two
      alternating overlap / lock-step pairs for the ratio of their speeds;
  13. the recurrent LM families at full width and depth: (a) mamba2-2.7b
      in an f32 copy (TF32 off), 4 prompts of 512 tokens prefilled by the
@@ -161,7 +161,8 @@ Phases (each raises on any failure, so the exit code is not 0):
      ring buffer's wrap, every row within 2e-3 of the teacher-forced
      forward; (d) TreeParallelMCTS(X=256, F=6, D=4, p=16) over LMTreeEnv
      and LMContinuationBackend(pool_size=16) at mamba2-2.7b, bf16, one
-     run_step() held superstep by superstep to the numpy oracle
+     run_step() of at most 16 supersteps held superstep by superstep to
+     the numpy oracle
      replaying the recorded env steps and values, then where its
      superstep goes; (e) a ContinuousBatcher of 2 slots over both archs
      at SMOKE width, f32: every request's log-probs within 1e-4 of a
@@ -186,7 +187,8 @@ Phases (each raises on any failure, so the exit code is not 0):
      bf16, 16 x 2,048 + 64: prefill ms, decode tokens/s, peak memory, the
      prefill's dropped share, 8 flash launches for mixtral and none for
      deepseek; (e) TreeParallelMCTS(X=256, F=6, D=4, p=16) over mixtral
-     at 8 layers, one run_step() against the numpy oracle; (f) one MoE
+     at 8 layers, one run_step() of at most 16 supersteps against the
+     numpy oracle; (f) one MoE
      layer's prefill and decode step by part (router, dispatch, experts,
      combine, shared expert), one MLA layer's prefill and decode steps,
      and the flash kernel at mixtral's serve prefill against SDPA and its
@@ -210,7 +212,24 @@ Phases (each raises on any failure, so the exit code is not 0):
      top kernels); (d) the flash kernel at
      whisper's encoder (B=16, S=1,500) and cross-attention (B=16, 384
      over 1,500) shapes, non-causal, against blockwise, SDPA and its
-     bound.
+     bound;
+ 16. training through the port's launcher (repro_torch.launch.train;
+     plain torch under autograd: the training path runs none of the three
+     kernels, and each row of the kernels line counts its launches there,
+     0): (a) llama3.2-1b at its width with 2 layers in f32 (TF32 off), one
+     seeded CPU init moved to the card, 3 train steps of B=2, S=64
+     (naive, AdamW) on both, loss, nll and grad_norm within 1e-4
+     relative at every step; (b) llama3.2-1b at full width and depth,
+     20 steps of B=8, S=512, bf16, naive, AdamW: every loss finite, the
+     parameters moved, ms a step (median after the first), tokens/s,
+     peak memory, and one step under the profiler (busy share, top
+     kernels); (c) restart-replay at 1 layer, B=2, S=64, bf16: 6 steps
+     straight against 3 with --ckpt (a temp dir, removed) and a resume
+     to 6, the final losses within 1e-4 (tests/test_checkpoint.py:89),
+     and 6 steps with --compress; (d) deepseek-v3-671b's 3 dense MLA
+     layers and its MTP block at published width, 5 steps of B=4, S=512,
+     bf16, Adafactor: every loss, nll and mtp_nll finite, ms a step and
+     peak; (e) impl="flash" under autograd raises before it launches.
 
 It prints JSON lines; the line before the last is {"kernels": [...]} and
 the last is {"ok": true, "device": {...}}.  It imports nothing of the JAX
@@ -245,8 +264,20 @@ SWEEP = [   # tests/test_kernels_uct.py TREE_SWEEP
 ]
 
 
+T_START = time.perf_counter()
+
+
 def emit(**kw):
-    print(json.dumps(kw), flush=True)
+    """One JSON line; "t" is the seconds since the script started."""
+    print(json.dumps(dict(kw, t=round(time.perf_counter() - T_START, 1))),
+          flush=True)
+
+
+def progress(phase: int) -> None:
+    """Name the phase that starts now on stderr, so that the end of a run
+    cut by its time limit says where it was."""
+    print(f"chip_smoke: phase {phase} starts at "
+          f"{time.perf_counter() - T_START:.1f} s", file=sys.stderr, flush=True)
 
 
 def flash_build_report():
@@ -1111,11 +1142,15 @@ def attn_layers(cfg) -> int:
     return sum(spec.kind == "attn" for spec in cfg.layer_specs())
 
 
+MCTS_LM_SUPERSTEPS = 16     # a run_step()'s cap in phases 8, 13 and 14
+
+
 def phase_mcts_lm(cfg, reuses=(False, True)):
     """TreeParallelMCTS (cuda) over LMTreeEnv + LMContinuationBackend at
-    cfg (full width, depth as given), bf16, one run_step() per entry of
-    `reuses`, held superstep by superstep to the numpy oracle replaying
-    the recorded env steps and values.  Returns the kernels' launches."""
+    cfg (full width, depth as given), bf16, one run_step() of at most
+    MCTS_LM_SUPERSTEPS supersteps per entry of `reuses`, held superstep by
+    superstep to the numpy oracle replaying the recorded env steps and
+    values.  Returns the kernels' launches."""
     from repro_torch.core import TreeConfig, TreeParallelMCTS
     from repro_torch.core.mcts import StepStats
     from repro_torch.kernels import flash_attention as FA
@@ -1138,7 +1173,7 @@ def phase_mcts_lm(cfg, reuses=(False, True)):
     for reuse in reuses:
         mc.stats = StepStats()
         t1 = time.perf_counter()
-        a, _, _ = mc.run_step(reuse_subtree=reuse)
+        a, _, _ = mc.run_step(MCTS_LM_SUPERSTEPS, reuse_subtree=reuse)
         wall = time.perf_counter() - t1
         s, n = mc.stats, max(mc.stats.supersteps, 1)
         tok = int(mc.env.env.tokens(mc.root_state)[-1])
@@ -1163,7 +1198,8 @@ def phase_mcts_lm(cfg, reuses=(False, True)):
     mr = TreeParallelMCTS(tree, ReplayEnv(env), ReplayBackend(sim), p=16,
                           executor="reference", expansion="loop", device=DEV)
     log_r = logged(mr)
-    ref_moves = [int(mr.run_step(reuse_subtree=reuse)[0]) for reuse in reuses]
+    ref_moves = [int(mr.run_step(MCTS_LM_SUPERSTEPS, reuse_subtree=reuse)[0])
+                 for reuse in reuses]
     if len(log_c) != len(log_r):
         raise AssertionError(f"{len(log_c)} supersteps against the oracle's "
                              f"{len(log_r)}")
@@ -1196,12 +1232,16 @@ def phase_mcts_lm(cfg, reuses=(False, True)):
     return launches
 
 
+PROFILED_CALLS = 2   # key_averages() takes the host ~0.3 ms an event
+
+
 def wall_and_device_ms(fn, n: int) -> dict:
-    """ms per call of fn on the host's clock (ending in a synchronize),
-    and the device time of all its kernels per call from torch.profiler
-    (summed over the device-side events only: a CPU op's device time
-    repeats its kernels'), so busy = device / wall; `top` lists the five
-    kernels with the most device time per call."""
+    """ms per call of fn on the host's clock over n calls (ending in a
+    synchronize), and the device time of all its kernels per call from
+    torch.profiler over min(n, PROFILED_CALLS) calls (summed over the
+    device-side events only: a CPU op's device time repeats its
+    kernels'), so busy = device / wall; `top` lists the five kernels with
+    the most device time per call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -1211,12 +1251,13 @@ def wall_and_device_ms(fn, n: int) -> dict:
         fn()
     torch.cuda.synchronize()
     wall = 1e3 * (time.perf_counter() - t0) / n
+    m = min(n, PROFILED_CALLS)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
+        for _ in range(m):
             fn()
         torch.cuda.synchronize()
     self_ms = sorted(((getattr(e, "self_device_time_total", None)
-                       or getattr(e, "self_cuda_time_total", 0.0)) / 1e3 / n,
+                       or getattr(e, "self_cuda_time_total", 0.0)) / 1e3 / m,
                       e.key[:90]) for e in prof.key_averages()
                      if e.device_type == DeviceType.CUDA)
     dev = sum(ms for ms, _ in self_ms)
@@ -1627,7 +1668,7 @@ def insert_finalize_times(mc):
 # ---------------------------------------------------------------------------
 
 FUSED_KS = (8, 32)
-FUSED_PAIRS = 10    # alternating K=1 / K=8 stream pairs for the ratio
+FUSED_PAIRS = 4     # alternating K=1 / K=8 stream pairs for the ratio
 
 
 def partial_env():
@@ -1980,7 +2021,7 @@ OVERLAP = dict(overlap=True, n_gangs=2, compact_threshold=0.0,
                expansion="pool", pool_workers=2)
 OVERLAP_KS = (1, 8)
 SHARDS = 2
-OVERLAP_PAIRS = 3   # alternating overlap / lock-step stream pairs
+OVERLAP_PAIRS = 1   # alternating overlap / lock-step stream pairs
 
 
 class PipelineProbe:
@@ -2225,7 +2266,7 @@ GOMOKU_C, GOMOKU_P, GOMOKU_G = 32, 16, 8
 NN_BATCHES = (1, 16, 64, 256)
 NN_TOL = 1e-5            # card vs CPU, f32 with TF32 off
 NN_MAX_BATCH, NN_CACHE = 64, 8192
-GOMOKU_REQUESTS, GOMOKU_PAIRS = 12, 3
+GOMOKU_REQUESTS, GOMOKU_PAIRS = 12, 2
 GOMOKU_WINDOW = 20       # supersteps under the profiler
 
 
@@ -3548,6 +3589,320 @@ def phase_encdec() -> dict:
     return {"serve": serve_launches, "prefill_f32": f32_launches, "rows": rows}
 
 
+# ---------------------------------------------------------------------------
+# phase 16: training on the card
+# ---------------------------------------------------------------------------
+
+TRAIN_TOL = 1e-4       # (a) card vs CPU, relative; (c) tests/test_checkpoint.py:89
+TRAIN_FULL = dict(steps=20, batch=8, seq=512)     # (b) llama3.2-1b, full depth
+TRAIN_PROFILED = 10    # (b)'s step run under the profiler (not in the median)
+TRAIN_REPLAY = dict(batch=2, seq=64)              # (c) 1 layer, 6 = 3 + 3 steps
+TRAIN_MTP = dict(steps=5, batch=4, seq=512)       # (d) deepseek-v3 3 dense + MTP
+TRAIN_CPU = dict(steps=3, batch=2, seq=64)        # (a) 2 layers, f32
+
+
+def llama_cut(n_layers: int):
+    """llama3.2-1b at its published width with n_layers of its 16."""
+    from repro_torch import configs
+
+    cfg = configs.get_config(LLAMA)
+    return dataclasses.replace(cfg, groups=((cfg.groups[0][0], n_layers),))
+
+
+def train_argv(steps: int, batch: int, seq: int, extra=()) -> list:
+    return ["--steps", str(steps), "--batch", str(batch), "--seq", str(seq),
+            "--log-every", "1", *extra]
+
+
+class TimedSteps:
+    """Inside `with`: every train step the launcher makes
+    (steps.make_train_step wrapped) timed on the host's clock from a
+    synchronize to its metrics read back, every step's metrics kept, with
+    keep_params the first step's input parameters and the last step's
+    output parameters kept (the step is functional, so nothing is copied,
+    but the first tree stays allocated), and the step numbered
+    `profile_at` run under torch.profiler instead (device busy share, top
+    kernels)."""
+
+    def __init__(self, profile_at=None, keep_params=False):
+        self.profile_at, self.keep_params = profile_at, keep_params
+        self.ms, self.metrics, self.first, self.last = [], [], None, None
+        self.profile = None
+
+    def __enter__(self):
+        from repro_torch.models import steps
+
+        self._make = steps.make_train_step
+
+        def make(*a, **kw):
+            step = self._make(*a, **kw)
+
+            def timed(params, opt_state, i, batch):
+                if self.first is None and self.keep_params:
+                    self.first = params
+                torch.cuda.synchronize()
+                if len(self.metrics) == self.profile_at:
+                    out, self.profile = profiled(
+                        lambda: step(params, opt_state, i, batch))
+                else:
+                    t0 = time.perf_counter()
+                    out = step(params, opt_state, i, batch)
+                    float(out[2]["loss"])
+                    self.ms.append(1e3 * (time.perf_counter() - t0))
+                self.metrics.append({k: float(v) for k, v in out[2].items()})
+                if self.keep_params:
+                    self.last = out[0]
+                return out
+
+            return timed
+
+        steps.make_train_step = make
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import steps
+
+        steps.make_train_step = self._make
+
+    def check_finite(self, label: str, keys) -> None:
+        for i, m in enumerate(self.metrics):
+            bad = [k for k in keys if not np.isfinite(m[k])]
+            if bad:
+                raise AssertionError(f"{label}: step {i} {bad} not finite: {m}")
+
+    def changed(self) -> dict:
+        """Share of the parameter entries the run changed, by dtype, and
+        the leaves it left untouched (of how many)."""
+        from repro_torch.pytree import tree_leaves
+
+        moved, total, still = {}, {}, 0
+        leaves = list(zip(tree_leaves(self.first), tree_leaves(self.last)))
+        for a, b in leaves:
+            k = str(a.dtype).removeprefix("torch.")
+            n = int((a != b).sum())
+            moved[k] = moved.get(k, 0) + n
+            total[k] = total.get(k, 0) + a.numel()
+            still += n == 0
+        return {"entries_changed": {k: moved[k] / total[k] for k in total},
+                "leaves_unchanged": still, "leaves": len(leaves)}
+
+
+def profiled(fn):
+    """(fn(), {wall_ms, device_ms (the union of the device events'
+    intervals), busy, top: the five kernels with the most device time})
+    of one call under torch.profiler, ending in a synchronize.  An empty
+    profile goes first: the profiler's first start in a process takes
+    seconds (8.9 s of wall around a 0.38 s step in its first run)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+    union, _, _ = device_intervals_ms(prof)
+    self_ms = sorted(((getattr(e, "self_device_time_total", None)
+                       or getattr(e, "self_cuda_time_total", 0.0)) / 1e3,
+                      e.key[:90]) for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA)
+    return out, {"wall_ms": wall, "device_ms": union, "busy": union / wall,
+                 "top": [[k, ms] for ms, k in self_ms[::-1][:5]]}
+
+
+def train_card_vs_cpu() -> float:
+    """(a) llama3.2-1b at its width, 2 layers, f32 (TF32 off): one seeded
+    init on the CPU moved to the card; 3 train steps of B=2, S=64
+    (naive, AdamW at lr 1e-3 after one warmup step) on both from the same
+    batches.  Returns the largest relative difference of loss, nll and
+    grad_norm over the steps; raises past TRAIN_TOL."""
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.models import lm, steps
+    from repro_torch.optim import make_optimizer
+    from repro_torch.pytree import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(llama_cut(2), dtype="float32")
+    n, B, S = TRAIN_CPU["steps"], TRAIN_CPU["batch"], TRAIN_CPU["seq"]
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    init, update = make_optimizer("adamw", lr=1e-3, warmup=1)
+    step = steps.make_train_step(cfg, update, impl="naive")
+    src = SyntheticTokens(cfg.vocab, B, S, seed=0)
+    runs, secs = {}, {}
+    for dev in ("cpu", DEV):
+        t0 = time.perf_counter()
+        p = tree_map(lambda t: t.to(dev), params)
+        st, out = init(p), []
+        for i in range(n):
+            batch = {k: torch.as_tensor(v, device=dev)
+                     for k, v in src.batch_at(i).items()}
+            p, st, m = step(p, st, i, batch)
+            out.append({k: float(m[k]) for k in ("loss", "nll", "grad_norm")})
+        runs[dev], secs[dev] = out, time.perf_counter() - t0
+        del p, st
+    worst = max(abs(g[k] - c[k]) / max(abs(c[k]), 1e-30)
+                for c, g in zip(runs["cpu"], runs[DEV]) for k in c)
+    emit(phase="train_card_vs_cpu", arch=cfg.name, reduced=reduced(cfg),
+         shape=f"B={B} S={S} float32, naive, AdamW", steps=n,
+         cpu=runs["cpu"], card=runs[DEV], max_rel_diff=worst, tol=TRAIN_TOL,
+         seconds=secs)
+    if not worst <= TRAIN_TOL:
+        raise AssertionError(f"train steps on the card differ from the CPU's "
+                             f"by {worst:.3e} (relative) > {TRAIN_TOL}")
+    return worst
+
+
+def train_launcher(cfg, shape: dict, keys, label: str, profile_at=None,
+                   check_moved=False) -> dict:
+    """The launcher (repro_torch.launch.train) over cfg on the card, its
+    steps timed (TimedSteps); raises unless every step's `keys` are
+    finite and, with check_moved, some parameter moved (the peak then
+    includes the first step's parameters, held for the check).  Returns
+    its numbers."""
+    from repro_torch.launch import specs, train
+
+    B, S = shape["batch"], shape["seq"]
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with TimedSteps(profile_at, keep_params=check_moved) as ts:
+        losses = train.train(cfg, train.parse_args(train_argv(**shape)), DEV)
+    secs = time.perf_counter() - t0
+    ts.check_finite(label, keys)
+    moved = ts.changed() if check_moved else {}
+    if check_moved and moved["leaves_unchanged"] == moved["leaves"]:
+        raise AssertionError(f"{label}: no parameter changed")
+    ms = float(np.median(ts.ms[1:]))
+    out = dict(arch=cfg.name, reduced=reduced(cfg),
+               shape=f"B={B} S={S} {cfg.dtype}, {train.train_impl(S)}",
+               optimizer=specs.optimizer_for(cfg)[0],
+               steps=len(ts.metrics), first_step_ms=ts.ms[0],
+               ms_per_step=ms, tokens_per_s=B * S / (ms / 1e3),
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               seconds=secs, losses=[m["loss"] for m in ts.metrics],
+               logged=losses, **moved)
+    for k in keys[1:]:
+        out[k] = [m[k] for m in ts.metrics]
+    if ts.profile is not None:
+        out["profiled_step"] = dict(
+            ts.profile, busy_of_median_step=ts.profile["device_ms"] / ms)
+    del ts
+    release()
+    return out
+
+
+def train_replay() -> dict:
+    """(c) restart-replay on the card: llama3.2-1b's width, 1 layer, bf16,
+    B=2, S=64: 6 steps straight, then 3 steps with --ckpt (a temp dir,
+    removed afterwards) and a resume to step 6; the final losses within
+    TRAIN_TOL.  Then 6 steps with --compress, reported."""
+    import tempfile
+
+    from repro_torch.launch import train
+
+    cfg = llama_cut(1)
+    shape = TRAIN_REPLAY
+    t = {}
+    t0 = time.perf_counter()
+    straight = train.train(cfg, train.parse_args(train_argv(6, **shape)), DEV)
+    t["straight"] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+        t0 = time.perf_counter()
+        ckpt = ("--ckpt", d, "--ckpt-every", "100")
+        first = train.train(cfg, train.parse_args(train_argv(
+            3, **shape, extra=ckpt)), DEV)
+        t["first_3_and_save"] = time.perf_counter() - t0
+        ckpt_bytes = sum(f.stat().st_size for f in Path(d).rglob("*")
+                         if f.is_file())
+        t0 = time.perf_counter()
+        resumed = train.train(cfg, train.parse_args(train_argv(
+            6, **shape, extra=ckpt)), DEV)
+        t["restore_3_and_save"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    compressed = train.train(cfg, train.parse_args(train_argv(
+        6, **shape, extra=("--compress",))), DEV)
+    t["compress"] = time.perf_counter() - t0
+    diff = abs(straight[-1] - resumed[-1])
+    emit(phase="train_replay", arch=cfg.name, reduced=reduced(cfg),
+         shape=f"B={shape['batch']} S={shape['seq']} {cfg.dtype}, naive, AdamW",
+         straight=straight, first=first, resumed=resumed,
+         final_loss_diff=diff, resumed_max_diff=max(
+             abs(a - b) for a, b in zip(straight[3:], resumed)),
+         tol=TRAIN_TOL, checkpoint_gib=ckpt_bytes / 2**30,
+         compressed=compressed, seconds=t)
+    if not diff <= TRAIN_TOL:
+        raise AssertionError(f"restart-replay: final loss {resumed[-1]} vs "
+                             f"{straight[-1]} straight ({diff:.3e} > {TRAIN_TOL})")
+    if not all(np.isfinite(compressed)):
+        raise AssertionError(f"--compress losses not finite: {compressed}")
+    return {"final_loss_diff": diff}
+
+
+def flash_under_autograd() -> None:
+    """(e) impl="flash" under autograd raises on the card before it
+    launches (the kernel has no backward)."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import attention as A
+
+    cfg = configs.get_config(LLAMA)
+    spec = cfg.layer_specs()[0]
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    d, H, Hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    p = {k: (torch.randn(shape, generator=gen, device=DEV) * 0.02).to(
+            torch.bfloat16).requires_grad_(True)
+         for k, shape in (("wq", (d, H, dh)), ("wk", (d, Hkv, dh)),
+                          ("wv", (d, Hkv, dh)), ("wo", (H, dh, d)))}
+    x = torch.randn((2, 64, d), generator=gen, device=DEV).to(torch.bfloat16)
+    pos = torch.arange(64, dtype=torch.int32, device=DEV)
+    n0 = FA.launches
+    try:
+        A.attn_forward(cfg, spec, p, x, pos, impl="flash")
+    except ValueError as e:
+        msg = str(e)
+    else:
+        raise AssertionError("impl='flash' under autograd did not raise")
+    if FA.launches != n0:
+        raise AssertionError("impl='flash' under autograd launched the kernel")
+    emit(phase="train_flash_guard", raised="ValueError", message=msg[:120])
+
+
+def phase_train() -> dict:
+    """Phase 16: training on the card.  Returns the kernels' launches over
+    (b)-(d), which must be 0: the training path runs none of them."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import uct_backup, uct_select
+
+    t_phase = time.perf_counter()
+    held = release()
+    worst = train_card_vs_cpu()
+    FA.launches = uct_select.launches = uct_backup.launches = 0
+    full = train_launcher(configs.get_config(LLAMA), TRAIN_FULL,
+                          ("loss", "nll", "grad_norm"), "llama3.2-1b",
+                          profile_at=TRAIN_PROFILED, check_moved=True)
+    emit(phase="train_full", **full)
+    replay = train_replay()
+    release()
+    mtp = train_launcher(deepseek_cut(0), TRAIN_MTP,
+                         ("loss", "nll", "mtp_nll", "grad_norm"),
+                         "deepseek-v3 MTP")
+    emit(phase="train_mtp", **mtp)
+    launches = {"flash_attention": FA.launches,
+                "uct_select": uct_select.launches,
+                "uct_backup": uct_backup.launches}
+    if any(launches.values()):
+        raise AssertionError(f"the training path launched kernels: {launches}")
+    flash_under_autograd()
+    emit(phase="train", seconds=time.perf_counter() - t_phase,
+         held_gib_at_start=held, card_vs_cpu_max_rel=worst,
+         replay_final_loss_diff=replay["final_loss_diff"], launches=launches)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3558,6 +3913,7 @@ def main() -> int:
     from repro_torch.kernels import build
 
     t_start = time.perf_counter()
+    progress(1)
     gpu = gpu_line()
     print(gpu, flush=True)
     t0 = time.perf_counter()
@@ -3569,39 +3925,57 @@ def main() -> int:
     emit(phase="build", seconds=round(secs, 3), built=sorted(logs), ptxas=ptxas)
     flash_build_report()
 
+    progress(2)
     n_cases = phase_kernels()
     emit(phase="kernels", cases=n_cases, mismatches=0)
+    progress(3)
     mc, launches, steps = phase_main_path()
+    progress(4)
     phase_timed()
     kernels = kernel_rows(mc, launches)
+    progress(5)
     phase_flash()
+    progress(6)
     phase_lm_prefill()
+    progress(7)
     serve_launches = phase_serve()
     flash = flash_row()
+    progress(8)
     lm_launches = phase_mcts_lm(configs.get_config(LLAMA))
     kernels.append(dict(flash, launches=lm_launches["flash_attention"],
                         launches_serve=serve_launches))
+    progress(9)
     serving = phase_serving(mc)
+    progress(10)
     fused_launches = phase_fused(serving["want"])
+    progress(11)
     overlap_launches = phase_overlap(serving["want"])
+    progress(12)
     gomoku = phase_gomoku()
+    progress(13)
     recurrent = phase_recurrent()
     kernels[2]["launches_recurrentgemma"] = {
         "serve_prefill": recurrent["serve"][RGEMMA],
         "f32_prefill": recurrent["prefill_f32"]}
     kernels[2]["launches_mamba2_mcts"] = recurrent["mcts"]["flash_attention"]
+    progress(14)
     moe = phase_moe()
     kernels[2]["at_mixtral_serve"] = moe["flash_row"]
     kernels[2]["launches_mixtral_serve"] = moe["serve"][MIXTRAL]
     kernels[2]["launches_deepseek_serve"] = moe["serve"][DEEPSEEK]
     kernels[2]["launches_mixtral_f32_prefill"] = moe["prefill_f32"]
     kernels[2]["launches_mixtral_mcts"] = moe["mcts"]["flash_attention"]
+    progress(15)
     encdec = phase_encdec()
     kernels[2]["at_whisper_encoder"] = encdec["rows"]["encoder"]
     kernels[2]["at_whisper_cross"] = encdec["rows"]["cross"]
     kernels[2]["launches_whisper_serve"] = encdec["serve"][WHISPER]
     kernels[2]["launches_paligemma_serve"] = encdec["serve"][PALIGEMMA]
     kernels[2]["launches_whisper_f32_prefill"] = encdec["prefill_f32"]
+    progress(16)
+    train_launches = phase_train()
+    for row in kernels:
+        row["launches_training"] = train_launches[row["name"]]
     for row in kernels[:2]:
         row["launches_serving"] = serving["launches"][row["name"]]
         row["launches_fused"] = {f"K{K}": fused_launches[K][row["name"]]

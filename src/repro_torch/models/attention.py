@@ -12,6 +12,12 @@ Compute paths of a prefill (a forward with S > 1), chosen by ``impl``:
     (the JAX package's lax.scan), O(S) memory.
   * "naive": materialized scores, small shapes and tests.
 
+Training (models/steps.py) runs "naive" or "blockwise" under autograd,
+as the JAX package's training forward does: the flash kernel has no
+backward, so ``impl="flash"`` raises a ValueError when autograd records
+its inputs (``_flash``).  The blockwise loop's in-place softmax runs out
+of place then (``layers.tracked``).
+
 Decode (S == 1 with a cache) attends a single query over the cache
 buffer with a validity mask, in plain torch for every ``impl``, as in the
 JAX package.  Windowed layers use a ring buffer of size ``window``.
@@ -203,12 +209,14 @@ def blockwise_attention(q, k, v, *, causal=True, window=None, prefix=0,
             if window is not None:
                 msk &= kpos[None, :] > qpos[:, None] - window
             msk &= (kpos < Sk)[None, :]
-            # in place: at [B, H, 512, 512] f32 each copy of s is 2 GiB at
-            # deepseek-v3's serve prefill
-            s.masked_fill_(~msk, NEG)
+            # in place unless autograd records it: at [B, H, 512, 512] f32
+            # each copy of s is 2 GiB at deepseek-v3's serve prefill
+            grad = L.tracked(s)
+            s = s.masked_fill(~msk, NEG) if grad else s.masked_fill_(~msk, NEG)
             m_new = torch.maximum(m_run, s.amax(-1))
             alpha = torch.exp(m_run - m_new)
-            p_b = s.sub_(m_new[..., None]).exp_()
+            p_b = (torch.exp(s - m_new[..., None]) if grad
+                   else s.sub_(m_new[..., None]).exp_())
             l_run = l_run * alpha + p_b.sum(-1)
             acc = acc * alpha[..., None] + _block_out(p_b, vblk)
             m_run = m_new
@@ -263,8 +271,20 @@ def attn_forward(cfg, spec, p, x, positions, cache=None, impl="blockwise"):
         if cfg.vlm_patches:
             raise NotImplementedError(
                 "impl='flash' has no prefix mask (nor has the Pallas kernel)")
-        out = FA.flash_attention(q, k, v, causal=True, window=spec.window)
+        out = _flash(q, k, v, causal=True, window=spec.window)
     return _proj_out(out, p["wo"]), cache
+
+
+def _flash(q, k, v, **kw):
+    """The flash kernel, which has no backward (nor has the Pallas
+    kernel): under autograd its output would be cut off from the graph
+    and q, k, v would get no gradient, so that raises."""
+    if L.tracked(q, k, v):
+        raise ValueError(
+            "impl='flash' has no backward: train with impl='naive' or "
+            "'blockwise' (the JAX package's training forward), or run "
+            "under torch.no_grad()")
+    return FA.flash_attention(q, k, v, **kw)
 
 
 def attend_all(q, k, v, impl):
@@ -274,7 +294,7 @@ def attend_all(q, k, v, impl):
     a decode step (Sq = 1), the JAX package's choice: naive over at most
     2,048 keys, blockwise beyond."""
     if impl == "flash" and q.shape[1] > 1:
-        return FA.flash_attention(q, k, v, causal=False)
+        return _flash(q, k, v, causal=False)
     if k.shape[1] <= 2048:
         return naive_attention(q, k, v, causal=False)
     return blockwise_attention(q, k, v, causal=False)

@@ -23,6 +23,15 @@ def dt(cfg) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
+def tracked(*tensors) -> bool:
+    """True when autograd records an op on `tensors`: grad mode is on and
+    one of them requires grad.  The serve paths write some large
+    temporaries in place to hold their memory peak; under autograd those
+    ops run out of place (an in-place write to a tensor that a backward
+    saved would fail or give wrong gradients)."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 _place = None     # set by drawing_into
 
 

@@ -45,6 +45,7 @@ from repro_torch.models import moe as M
 from repro_torch.models import rglru as R
 from repro_torch.models import ssd as SSD
 from repro_torch.models.config import LayerSpec, ModelConfig
+from repro_torch.pytree import tree_map
 
 KINDS = ("attn", "ssd", "rglru")
 MLPS = ("dense", "moe", "none")
@@ -117,9 +118,9 @@ def _init_stack(cfg, spec: LayerSpec, gen, repeats: int, device) -> dict:
             layer = _init_layer(cfg, spec, gen)
         if stack is None:
             own = {t.data_ptr(): t for t in drawn}
-            stack = _map(layer, lambda t: own[t.data_ptr()] if t.data_ptr()
-                         in own else t.new_empty((repeats, *t.shape),
-                                                 device=device))
+            stack = tree_map(lambda t: own[t.data_ptr()] if t.data_ptr()
+                             in own else t.new_empty((repeats, *t.shape),
+                                                     device=device), layer)
         _copy_row(stack, layer, r)
     return stack
 
@@ -151,15 +152,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device) -> dict:
                                      L.dt(cfg), 0.01),
                     "block": _init_layer(cfg, MTP_SPEC, generator),
                     "norm": L.init_norm(cfg, generator.device)}
-    return _map(p, lambda t: t.to(device))
-
-
-def _map(tree, fn):
-    if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_map(v, fn) for v in tree]
-    return fn(tree)
+    return tree_map(lambda t: t.to(device), p)
 
 
 def _leaf_from_numpy(a, device) -> torch.Tensor:
@@ -177,12 +170,22 @@ def from_jax_params(cfg: ModelConfig, tree, device) -> dict:
     with its leaves as numpy arrays: same structure, same values, bit for
     bit (bf16 leaves included)."""
     _check_supported(cfg)
-    return _map(tree, lambda a: _leaf_from_numpy(a, device))
+    return tree_map(lambda a: _leaf_from_numpy(a, device), tree)
 
 
 def _at(tree, r: int):
     """The views [r] of a stacked layer dict."""
     return {k: _at(v, r) if isinstance(v, dict) else v[r] for k, v in tree.items()}
+
+
+def _layers(tree, n: int) -> list:
+    """The n layer dicts of a stacked layer dict, as views: one unbind a
+    leaf, whose backward stacks the n layers' gradients once (a view
+    [r] a layer would add a whole stack of zeros to each leaf's gradient
+    per layer)."""
+    rows = {k: _layers(v, n) if isinstance(v, dict) else torch.unbind(v)
+            for k, v in tree.items()}
+    return [{k: v[r] for k, v in rows.items()} for r in range(n)]
 
 
 # ------------------------------------------------------------------ block
@@ -236,9 +239,7 @@ def encode(cfg: ModelConfig, params, frames, impl="blockwise"):
     T = frames.shape[1]
     positions = torch.arange(T, dtype=torch.int32, device=frames.device)
     x = frames.to(L.dt(cfg))
-    stack = params["encoder"]["layers"]
-    for r in range(cfg.encoder.n_layers):
-        p = _at(stack, r)
+    for p in _layers(params["encoder"]["layers"], cfg.encoder.n_layers):
         h = L.norm(cfg, p["norm_in"], x)
         x = x + A.encoder_attn_forward(cfg, p["mix"], h, positions,
                                        impl).to(x.dtype)
@@ -263,11 +264,12 @@ def hidden_states(cfg: ModelConfig, params, tokens, positions=None, caches=None,
         enc_out = encode(cfg, params, frames, impl)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for gi, (pattern, repeats) in enumerate(cfg.groups):
+        layers = [_layers(stack, repeats) for stack in params[f"g{gi}"]]
         for r in range(repeats):
             for i, spec in enumerate(pattern):
                 c = None if caches is None else _at(caches[f"g{gi}"][i], r)
-                x, a = _block(cfg, spec, _at(params[f"g{gi}"][i], r), x,
-                              positions, c, impl, enc_out)
+                x, a = _block(cfg, spec, layers[i][r], x, positions, c, impl,
+                              enc_out)
                 if a is not None:
                     aux = aux + a
     return L.norm(cfg, params["final_norm"], x), aux
@@ -296,7 +298,7 @@ def mtp_logits(cfg: ModelConfig, params, h, next_embeds, positions,
                impl="naive"):
     """DeepSeek-V3 multi-token prediction: the logits of token t+2 from the
     trunk's hidden state at t beside the embedding of token t+1.  (Its
-    loss leg waits for the train step, ROADMAP.md queue A item 9.)"""
+    loss leg is ``0.3 * mtp_nll`` in models/steps.loss_fn.)"""
     z = torch.cat([h, next_embeds.to(h.dtype)], dim=-1) @ params["mtp"]["proj"]
     z, _ = _block(cfg, MTP_SPEC, params["mtp"]["block"], z, positions, None,
                   impl)

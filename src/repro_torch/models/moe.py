@@ -133,13 +133,17 @@ def experts(cfg, p, xf, dsp: Dispatch) -> torch.Tensor:
     src = (first[:, None] + c).reshape(E * C)
     filled = (c < counts[:, None]).reshape(E * C)
     rows = st_[torch.clamp(src, max=T * K - 1)]
-    # gathered, then the rows past each expert's count zeroed in place
-    # (at deepseek's serve shape xe is 4.7 GB)
-    xe = xf[rows].mul_(filled[:, None].to(xf.dtype)).reshape(E, C, -1)
+    # gathered, then the rows past each expert's count zeroed, in place
+    # unless autograd records it (at deepseek's serve shape xe is 4.7 GB)
+    grad = L.tracked(xf, p["wi"], p["wg"], p["wo"])
+    xe = xf[rows]
+    xe = xe * filled[:, None].to(xf.dtype) if grad \
+        else xe.mul_(filled[:, None].to(xf.dtype))
+    xe = xe.reshape(E, C, -1)
     h = torch.bmm(xe, p["wi"])
     g = torch.bmm(xe, p["wg"])
     del xe
-    h = L.act_fn(cfg)(g).mul_(h)
+    h = L.act_fn(cfg)(g) * h if grad else L.act_fn(cfg)(g).mul_(h)
     del g
     return torch.bmm(h, p["wo"]).reshape(E * C, -1)
 

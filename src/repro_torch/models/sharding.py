@@ -1,6 +1,6 @@
 """Explicit per-device placement (the placement half of
-repro.models.sharding; its logical-axis rules come with training,
-ROADMAP.md queue A item 9)."""
+repro.models.sharding; its logical-axis rules wait for the port's
+DeviceMesh, ROADMAP.md queue A item 11)."""
 
 from __future__ import annotations
 

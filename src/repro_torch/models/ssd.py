@@ -91,13 +91,22 @@ def ssd_forward(cfg, p, u, cache=None):
     seg = torch.cumsum(dtc * A, dim=2)       # within-chunk cumsum of log a
     segT = seg.transpose(2, 3)                                       # [B,c,H,l]
     # intra-chunk: y_i = sum_{j<=i} (C_i.B_j) exp(seg_i - seg_j) dt_j x_j,
-    # built as W [B,c,H,i,j] in place, then W @ x over j
+    # built as W [B,c,H,i,j] (in place unless autograd records it), then
+    # W @ x over j.  j > i is masked to -inf before the exp: there seg_i -
+    # seg_j > 0 overflows to inf within a chunk, and the JAX package's
+    # exp-then-mask, which gives the same forward, backpropagates 0 * inf
+    # = NaN into every gradient under the SSD layer (ROADMAP.md queue C)
     W = segT[..., :, None] - segT[..., None, :]
-    W.exp_()
-    W.masked_fill_(~torch.ones(ck, ck, dtype=torch.bool, device=u.device).tril(),
-                   0.0)
-    W.mul_((Cc @ Bc.transpose(2, 3))[:, :, None])                    # C_i.B_j
-    W.mul_(dtc.transpose(2, 3)[:, :, :, None, :])                    # dt_j
+    upper = ~torch.ones(ck, ck, dtype=torch.bool, device=u.device).tril()
+    CB = (Cc @ Bc.transpose(2, 3))[:, :, None]                       # C_i.B_j
+    dtj = dtc.transpose(2, 3)[:, :, :, None, :]                      # dt_j
+    if L.tracked(W, CB, dtj):
+        W = torch.exp(W.masked_fill(upper, -math.inf)) * CB * dtj
+    else:
+        W.masked_fill_(upper, -math.inf).exp_()
+        W.mul_(CB)
+        W.mul_(dtj)
+    del CB
     xcT = xc.permute(0, 1, 3, 2, 4)                                  # [B,c,H,l,P]
     y = (W @ xcT).permute(0, 1, 3, 2, 4)                             # [B,c,l,H,P]
     del W

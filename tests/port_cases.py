@@ -19,9 +19,6 @@ repro_torch (no copy of it exists).  The rewrite:
     ``jax_key_lm.init_params`` (through ``from_jax_params``), so the
     port's NN and LM legs compute the JAX package's functions (the rest
     of ``lm`` is the port's);
-  * imports of the JAX package's modules that the port does not have
-    (``JAX_ONLY``) stay on the JAX package, for the bodies that use them
-    (the callers exclude those bodies);
   * in a module listed in ``SHIMS``, ``jax`` and ``jnp`` are rebound after
     the module runs.  In the device-twin tests of
     tests/test_fused_dispatch.py ``jax.jit(f)`` calls f on torch tensors
@@ -30,13 +27,19 @@ repro_torch (no copy of it exists).  The rewrite:
     twin.  In tests/test_models_smoke.py ``jax.random.randint`` draws
     JAX's numbers into a torch tensor and the few ``jnp`` calls the bodies
     make on tokens, frames, patches and logits are torch's, so a body's
-    prefill and decode run the port's steps on the JAX package's weights
-    and tokens.  In
+    prefill, decode and train step run the port's steps on the JAX
+    package's weights and tokens (``jax.tree`` stays JAX's, which walks
+    dicts and lists of torch tensors as it walks arrays).  In
     tests/test_serving.py ``jnp`` is torch's for the same few calls, so its
     ``greedy_reference`` decodes with the port; tests/test_batcher.py's
     ``greedy_reference`` (imported from test_serving, a test module the
     rewrite leaves alone) is that ported one, so neither hands the port's
-    torch weights to the JAX package nor a jax array to the port.
+    torch weights to the JAX package nor a jax array to the port.  In
+    tests/test_optim_sharding_data.py and tests/test_checkpoint.py the
+    bodies' ``jnp`` calls make torch tensors (float64 input as float32,
+    as JAX makes it) and ``jax.random.normal`` draws JAX's numbers into
+    one, so the optimizers, compression and checkpoints run on the port's
+    trees; ``train_main`` (the launcher) gets ``device="cpu"``.
 
 ``cases(module, exclude)`` expands each remaining test function's
 ``pytest.mark.parametrize`` marks into (id, function, kwargs) cases for
@@ -65,14 +68,11 @@ VALUE_MAP = {"pallas": "cuda"}
 DEVICE_CALLS = {"SearchClient", "SearchService", "ServiceFrontend",
                 "ArenaPool", "TreeParallelMCTS", "make_arena_executor",
                 "make_intree_executor", "TorchArenaExecutor",
-                "CudaArenaExecutor", "NNSimBackend", "init_caches"} | set(NAME_MAP)
+                "CudaArenaExecutor", "NNSimBackend", "init_caches",
+                "train_main"} | set(NAME_MAP)
 # (JAX module, name) -> the name in this module that stands for it
 REBIND = {("repro.envs.policy_net", "init_params"): "jax_key_init_params",
           ("repro.models", "lm"): "jax_key_lm"}
-# modules of the JAX package the port does not have: host-only fault
-# bookkeeping (repro.distributed.fault), outside the port's slices, and the
-# optimizer (repro.optim), which only the excluded training bodies use
-JAX_ONLY = {"repro.distributed.fault", "repro.optim"}
 
 
 def _to_port(name: str) -> str:
@@ -91,7 +91,7 @@ class _ToPort(ast.NodeTransformer):
         return node
 
     def visit_ImportFrom(self, node):
-        if node.level != 0 or node.module in JAX_ONLY:
+        if node.level != 0:
             return node
         rebound = [ast.ImportFrom("port_cases", [ast.alias(
             REBIND[(node.module, a.name)], a.asname or a.name)], 0)
@@ -190,9 +190,31 @@ def _jax_randint(key, shape, lo, hi):
     return torch.as_tensor(np.array(jax.random.randint(key, shape, lo, hi)))
 
 
+def _jax_normal(key, shape):
+    import jax
+    return torch.as_tensor(np.array(jax.random.normal(key, shape)))
+
+
+class _JaxTree:
+    """jax.tree, imported when first used."""
+
+    def __getattr__(self, name):
+        import jax
+        return getattr(jax.tree, name)
+
+
+def _tensor(x, dtype=None):
+    """jnp.asarray on torch: float64 input becomes float32, as in JAX."""
+    a = np.asarray(x)
+    if dtype is None and a.dtype == np.float64:
+        dtype = torch.float32
+    return torch.as_tensor(a, dtype=dtype)
+
+
 JAX_MODELS_SHIM = types.SimpleNamespace(
     jit=_jit, random=types.SimpleNamespace(PRNGKey=_jax_key,
-                                           randint=_jax_randint))
+                                           randint=_jax_randint),
+    tree=_JaxTree())
 JNP_MODELS_SHIM = types.SimpleNamespace(
     asarray=lambda x: torch.as_tensor(np.asarray(x)), argmax=torch.argmax,
     roll=torch.roll, stack=torch.stack, float32=torch.float32,
@@ -210,10 +232,22 @@ def _ported_greedy_reference(cfg, params, prompt, n_new):
                                                         n_new)
 
 
+JAX_TRAIN_SHIM = types.SimpleNamespace(
+    tree=_JaxTree(), random=types.SimpleNamespace(PRNGKey=_jax_key,
+                                                  normal=_jax_normal))
+JNP_TRAIN_SHIM = types.SimpleNamespace(
+    asarray=_tensor, arange=lambda n, dtype=None: torch.arange(n, dtype=dtype),
+    ones=lambda shape, dtype=torch.float32: torch.ones(shape, dtype=dtype),
+    abs=torch.abs, sqrt=torch.sqrt, sum=torch.sum, linalg=torch.linalg,
+    int8=torch.int8, int32=torch.int32, float32=torch.float32)
+
 SHIMS = {"test_fused_dispatch": {"jax": JAX_SHIM, "jnp": JNP_SHIM},
          "test_models_smoke": {"jax": JAX_MODELS_SHIM, "jnp": JNP_MODELS_SHIM},
          "test_serving": {"jnp": JNP_SERVING_SHIM},
-         "test_batcher": {"greedy_reference": _ported_greedy_reference}}
+         "test_batcher": {"greedy_reference": _ported_greedy_reference},
+         "test_optim_sharding_data": {"jax": JAX_TRAIN_SHIM,
+                                      "jnp": JNP_TRAIN_SHIM},
+         "test_checkpoint": {"jax": JAX_TRAIN_SHIM, "jnp": JNP_TRAIN_SHIM}}
 
 _MODULES: dict = {}
 

@@ -31,7 +31,9 @@ against the CPU at the published E and K (every integer identical), and
 the MoE layer, MLA (prefill, decode decompressed and absorbed) and the
 whole SMOKE mixtral / deepseek-v3 on the card against the CPU; the SMOKE
 whisper-small and paligemma-3b's prefill (frames, patches) and decode on
-the card against the CPU.
+the card against the CPU.  Three train steps of eight SMOKE archs on the
+card against the CPU (no kernel launches), and impl="flash" under
+autograd raising before it launches.
 """
 
 import numpy as np
@@ -1083,3 +1085,79 @@ def test_encdec_prefill_decode_on_card_matches_cpu(arch):
     enc = cfg.encoder.n_layers + 2 * cfg.n_layers if cfg.encoder else 0
     assert FA.launches - n == enc
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "gemma3-12b", "mamba2-2.7b",
+                                  "recurrentgemma-9b", "mixtral-8x22b",
+                                  "deepseek-v3-671b", "whisper-small",
+                                  "paligemma-3b"])
+def test_train_steps_on_card_match_cpu(arch):
+    """Three train steps of the SMOKE model (blockwise attention, AdamW
+    at lr 1e-3 after one warmup step), f32 with TF32 off, from one CPU
+    init and the same batches: loss, nll and grad_norm on the card within
+    1e-4 (relative) of the CPU's at every step; no kernel launches."""
+    need_cuda()
+    from repro_torch import configs
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.envs.policy_net import exact_f32
+    from repro_torch.models import lm, steps
+    from repro_torch.optim import make_optimizer
+
+    cfg = configs.get_config(arch, smoke=True)
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    init, update = make_optimizer("adamw", lr=1e-3, warmup=1)
+    step = steps.make_train_step(cfg, update, impl="blockwise")
+    src = SyntheticTokens(cfg.vocab, 2, 24, seed=2)
+    rng = np.random.RandomState(5)
+    extra = {}
+    if cfg.encoder is not None:
+        extra["frames"] = torch.tensor(
+            rng.randn(2, cfg.encoder.n_frames, cfg.d_model) * 0.1,
+            dtype=torch.float32)
+    if cfg.vlm_patches:
+        extra["patches"] = torch.tensor(
+            rng.randn(2, cfg.vlm_patches, cfg.d_model) * 0.1,
+            dtype=torch.float32)
+
+    def run(dev):
+        p = _on(params, dev)
+        st, out = init(p), []
+        for i in range(3):
+            batch = {k: torch.as_tensor(v) for k, v in src.batch_at(i).items()}
+            p, st, m = step(p, st, i, _on({**batch, **extra}, dev))
+            out.append([float(m[k]) for k in ("loss", "nll", "grad_norm")])
+        return np.array(out)
+
+    with exact_f32():
+        want = run("cpu")
+        n = FA.launches
+        got = run("cuda")
+    assert FA.launches == n
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=0)
+
+
+@pytest.mark.cuda
+def test_flash_under_autograd_raises_on_card():
+    """impl="flash" has no backward: under autograd attn_forward raises on
+    the card before it launches; under no_grad it launches once."""
+    need_cuda()
+    from repro_torch import configs
+    from repro_torch.models import attention as A
+    from repro_torch.models import lm
+
+    cfg = configs.get_config("llama3.2-1b", smoke=True)
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    layer = {k: v.cuda().requires_grad_(True)
+             for k, v in lm._at(params["g0"][0], 0)["mix"].items()}
+    spec = cfg.layer_specs()[0]
+    x = torch.randn(2, 16, cfg.d_model, device="cuda")
+    pos = torch.arange(16, dtype=torch.int32, device="cuda")
+    n = FA.launches
+    with pytest.raises(ValueError, match="no backward"):
+        A.attn_forward(cfg, spec, layer, x, pos, impl="flash")
+    assert FA.launches == n
+    with torch.no_grad():
+        A.attn_forward(cfg, spec, layer, x, pos, impl="flash")
+    torch.cuda.synchronize()
+    assert FA.launches == n + 1

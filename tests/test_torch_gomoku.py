@@ -304,9 +304,6 @@ def test_cuda_matches_reference_on_port_net():
 # ---------------------------------- the JAX package's own bodies on the port
 
 UNPORTED_MCTS = {
-    "test_fault_policy_quorum": "repro.distributed.fault is not part of the "
-                                "port (port_cases.JAX_ONLY)",
-    "test_heartbeat_monitor": "repro.distributed.fault is not part of the port",
     "test_mcts_beats_random_on_pong": "a Pong leg of about 20 s on the CPU; "
                                       "the Pong driver is held to JAX's by "
                                       "tests/test_torch_mcts.py",

@@ -63,6 +63,10 @@ def test_import_loads_no_jax_module():
         "import repro_torch.envs.gomoku, repro_torch.envs.policy_net\n"
         "import repro_torch.sim.server, repro_torch.sim.cache\n"
         "import repro_torch.configs.gomoku_cfg, repro_torch.configs.pong\n"
+        "import repro_torch.optim, repro_torch.optim.compression\n"
+        "import repro_torch.data, repro_torch.distributed\n"
+        "import repro_torch.launch.specs, repro_torch.launch.train\n"
+        "import repro_torch.pytree\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n")

@@ -315,11 +315,7 @@ def test_mtp_logits_match_jax(models):
 
 # ------------------------------------- test_models_smoke.py on the port
 
-SMOKE_UNPORTED = {
-    "test_forward_and_train_step": "the train step is ROADMAP.md queue A "
-                                   "item 9 (training)",
-}
-SMOKE_CASES = port_cases.cases("test_models_smoke", SMOKE_UNPORTED)
+SMOKE_CASES = port_cases.cases("test_models_smoke", {})
 
 
 @pytest.mark.parametrize("fn,kwargs", [c[1:] for c in SMOKE_CASES],
@@ -327,5 +323,5 @@ SMOKE_CASES = port_cases.cases("test_models_smoke", SMOKE_UNPORTED)
 def test_jax_models_smoke_case_on_port(fn, kwargs, request):
     """One test of tests/test_models_smoke.py, its own body run against
     repro_torch over the ported archs (port_cases: JAX's weights and
-    tokens, the port's prefill, decode and forward)."""
+    tokens, the port's prefill, decode, forward and train step)."""
     port_cases.run_case(fn, kwargs, request)
