@@ -229,7 +229,25 @@ Phases (each raises on any failure, so the exit code is not 0):
      and 6 steps with --compress; (d) deepseek-v3-671b's 3 dense MLA
      layers and its MTP block at published width, 5 steps of B=4, S=512,
      bf16, Adafactor: every loss, nll and mtp_nll finite, ms a step and
-     peak; (e) impl="flash" under autograd raises before it launches.
+     peak; (e) impl="flash" under autograd raises before it launches;
+ 17. the launch tooling (launch/distributed_init.py, mesh.py,
+     collectives.py, specs.py, roofline.py, dryrun.py; models/sharding.py,
+     moe.py's shard-map path; distributed/checkpoint.py's restore onto a
+     mesh): (a) a world of one on the card (NCCL on a free localhost
+     port), a 1x1 (data, model) DeviceMesh, all_reduce / all_gather /
+     broadcast of seeded bf16 and f32 tensors bit for bit with the
+     recorder's bytes exact; (b) one MoE layer of mixtral-8x22b and of
+     deepseek-v3-671b at full width (bf16, B=4 x 512) through the
+     shard-map path on that mesh, y and aux identical to the dense path's,
+     the model all-reduce's T * d * 2 bytes recorded; (c) a seeded tree
+     (llama3.2-1b's f32 embedding among it) restored onto the mesh, every
+     leaf a DTensor equal to the saved one bit for bit; (d) the dry run's
+     op counts (meta tensors) of llama3.2-1b's train step at phase 16(b)'s
+     shape and its serve prefill at phase 7's (flash through its 16
+     reports), each bound against the time this run measured for it: the
+     share and the MFU; (e) the dry run's state bytes of that train cell
+     on a 1x1 mesh against the card's allocation after the launcher built
+     the same state in 16(b), within 2%.
 
 It prints JSON lines; the line before the last is {"kernels": [...]} and
 the last is {"ok": true, "device": {...}}.  It imports nothing of the JAX
@@ -978,7 +996,7 @@ def phase_serve() -> int:
          prefill_ms=1e3 * out["prefill_s"],
          decode_tokens_per_s=16 * 64 / out["decode_s"],
          req_per_s=out["req_per_s"], flash_launches=launches)
-    return launches
+    return launches, 1e3 * out["prefill_s"]
 
 
 PHASE8_HEADS = (1, 43, 32, 8, 64)   # phase 8's longest B=1 forward
@@ -1025,12 +1043,7 @@ def flash_timing(shape, seed, window=None, kv_len=None, causal=True) -> dict:
         enable_gqa=True)
     lib = cuda_time_ms(sdpa, none, 20)
     lib_trace = wall_and_device_ms(sdpa, 10)
-    # (query, key) pairs inside the causal window, or all of them
-    qpos = np.arange(S)
-    pairs = (int(np.minimum(qpos + 1, window or S).sum()) if causal
-             else S * Sk)
-    ops = 4 * B * H * dh * pairs
-    nbytes = 2 * (2 * B * S * H * dh + 2 * B * Sk * Hkv * dh)
+    ops, nbytes = FA.costs(q, k, v, causal=causal, window=window)
     t_ops = 1e3 * ops / H100_BF16_OPS_PER_S
     t_bytes = 1e3 * nbytes / H100_HBM_BYTES_PER_S
     split_floor = 1.5 * t_ops
@@ -3622,16 +3635,20 @@ class TimedSteps:
     output parameters kept (the step is functional, so nothing is copied,
     but the first tree stays allocated), and the step numbered
     `profile_at` run under torch.profiler instead (device busy share, top
-    kernels)."""
+    kernels).  state_bytes: the memory allocated when the first step is
+    called, beyond what was allocated on entering (the parameters and the
+    optimizer state the launcher built, and the first batch)."""
 
     def __init__(self, profile_at=None, keep_params=False):
         self.profile_at, self.keep_params = profile_at, keep_params
         self.ms, self.metrics, self.first, self.last = [], [], None, None
         self.profile = None
+        self.state_bytes = None
 
     def __enter__(self):
         from repro_torch.models import steps
 
+        self.base = torch.cuda.memory_allocated()
         self._make = steps.make_train_step
 
         def make(*a, **kw):
@@ -3641,6 +3658,8 @@ class TimedSteps:
                 if self.first is None and self.keep_params:
                     self.first = params
                 torch.cuda.synchronize()
+                if self.state_bytes is None:    # the state the launcher built
+                    self.state_bytes = torch.cuda.memory_allocated() - self.base
                 if len(self.metrics) == self.profile_at:
                     out, self.profile = profiled(
                         lambda: step(params, opt_state, i, batch))
@@ -3783,7 +3802,8 @@ def train_launcher(cfg, shape: dict, keys, label: str, profile_at=None,
                ms_per_step=ms, tokens_per_s=B * S / (ms / 1e3),
                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                seconds=secs, losses=[m["loss"] for m in ts.metrics],
-               logged=losses, **moved)
+               logged=losses, state_bytes=ts.state_bytes,
+               tf32=torch.backends.cuda.matmul.allow_tf32, **moved)
     for k in keys[1:]:
         out[k] = [m[k] for m in ts.metrics]
     if ts.profile is not None:
@@ -3870,9 +3890,10 @@ def flash_under_autograd() -> None:
     emit(phase="train_flash_guard", raised="ValueError", message=msg[:120])
 
 
-def phase_train() -> dict:
+def phase_train() -> tuple:
     """Phase 16: training on the card.  Returns the kernels' launches over
-    (b)-(d), which must be 0: the training path runs none of them."""
+    (b)-(d), which must be 0: the training path runs none of them, and
+    (b)'s numbers (phase 17 reads its ms a step, TF32 and state bytes)."""
     from repro_torch import configs
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import uct_backup, uct_select
@@ -3900,7 +3921,256 @@ def phase_train() -> dict:
     emit(phase="train", seconds=time.perf_counter() - t_phase,
          held_gib_at_start=held, card_vs_cpu_max_rel=worst,
          replay_final_loss_diff=replay["final_loss_diff"], launches=launches)
-    return launches
+    return launches, full
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the launch tooling on one card
+# ---------------------------------------------------------------------------
+
+LAUNCH_MOE = dict(batch=4, seq=512)     # (b): 2,048 tokens a MoE layer
+STATE_TOL = 0.02        # (e): the dry run's state bytes against the card's
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def launch_world():
+    """(a) a world of one on the card: init_distributed (NCCL, a free
+    localhost port), make_host_mesh's 1x1 (data, model) DeviceMesh;
+    all_reduce, all_gather and broadcast of seeded bf16 and f32 tensors
+    return them bit for bit and the recorder counts their bytes exactly.
+    Returns the mesh."""
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import collectives
+    from repro_torch.launch.distributed_init import init_distributed
+    from repro_torch.launch.mesh import make_host_mesh
+
+    os.environ["REPRO_COORDINATOR"] = f"localhost:{free_port()}"
+    info = init_distributed()
+    mesh = make_host_mesh()
+    if tuple(mesh.shape) != (1, 1) or mesh.device_type != torch.device(DEV).type:
+        raise AssertionError(f"host mesh {mesh}")
+    gen = torch.Generator(device=DEV).manual_seed(17)
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        x = randn(gen, (1024, 4096), dtype)
+        t = x.clone()
+        with collectives.record() as rec:
+            dist.all_reduce(t, group=mesh.get_group("model"))
+            parts = [torch.empty_like(t)]
+            dist.all_gather(parts, t, group=mesh.get_group("data"))
+            dist.broadcast(t, src=0)
+        torch.cuda.synchronize()
+        n = x.numel() * x.element_size()
+        want = {"all_reduce": n, "all_gather": n, "reduce_scatter": 0,
+                "all_to_all": 0, "broadcast": n, "total": 3 * n}
+        exact = torch.equal(t, x) and torch.equal(parts[0], x)
+        if not exact or rec.bytes != want:
+            raise AssertionError(f"{dtype} collectives: exact {exact}, "
+                                 f"recorded {rec.bytes} against {want}")
+        out[str(dtype).removeprefix("torch.")] = rec.bytes
+    emit(phase="launch_world", **info, mesh=str(mesh), recorded_bytes=out,
+         bit_exact=True)
+    return mesh
+
+
+def launch_moe(mesh) -> dict:
+    """(b) one MoE layer of mixtral-8x22b and of deepseek-v3-671b at full
+    width (bf16 seeded weights; mixtral's freed before deepseek's), B=4 x
+    512 tokens: the shard-map path under set_context(mesh, the cell's
+    specs.OPTIMIZED_RULES) against the dense path, y and aux identical;
+    the recorder counts the model all-reduce's T * d * 2 bytes."""
+    from repro_torch import configs
+    from repro_torch.launch import collectives, specs
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe, sharding as sh
+
+    B, S = LAUNCH_MOE["batch"], LAUNCH_MOE["seq"]
+    out = {}
+    for arch in (MIXTRAL, DEEPSEEK):
+        release()
+        cfg = configs.get_config(arch)
+        rules = specs.OPTIMIZED_RULES[(cfg.name, "train_4k")]
+        p = moe.init_moe(cfg, torch.Generator(device=DEV).manual_seed(0))
+        x = randn(torch.Generator(device=DEV).manual_seed(1),
+                  (B, S, cfg.d_model), L.dt(cfg))
+        dense = lambda: moe.moe_forward(cfg, p, x)
+
+        def shard_map():
+            sh.set_context(mesh, rules)
+            try:
+                return moe.moe_forward(cfg, p, x)
+            finally:
+                sh.set_context(None)
+
+        y0, aux0 = dense()
+        with collectives.record() as rec:
+            y1, aux1 = shard_map()
+        torch.cuda.synchronize()
+        T, d = B * S, cfg.d_model
+        ar = T * d * y0.element_size()      # the model all-reduce of y
+        identical = torch.equal(y0, y1) and torch.equal(aux0, aux1)
+        row = dict(arch=cfg.name, tokens=T, E=cfg.n_experts, K=cfg.top_k,
+                   rules=repr(rules), identical=identical,
+                   max_abs_diff=float((y0.float() - y1.float()).abs().max()),
+                   aux=float(aux0), recorded_bytes=rec.bytes,
+                   model_all_reduce_bytes=ar,
+                   expert_weight_gb=sum(p[k].numel() * p[k].element_size()
+                                        for k in ("wi", "wg", "wo")) / 1e9,
+                   dense_ms=cuda_time_ms(dense, lambda: None, 3, warm=1),
+                   shard_map_ms=cuda_time_ms(shard_map, lambda: None, 3,
+                                             warm=1))
+        emit(phase="launch_moe", **row)
+        if not identical or rec.bytes["all_reduce"] != ar:
+            raise AssertionError(f"{cfg.name}: shard-map path identical "
+                                 f"{identical}, all_reduce "
+                                 f"{rec.bytes['all_reduce']} B, not {ar}")
+        out[cfg.name] = row
+        del p, x, y0, y1
+    release()
+    return out
+
+
+def launch_restore(mesh) -> dict:
+    """(c) a seeded tree (llama3.2-1b's f32 embedding, a bf16 matrix, an
+    f32 norm) saved and restored with shardings= on the card mesh: every
+    leaf a DTensor on the mesh, equal to the saved leaf bit for bit."""
+    import tempfile
+
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import configs
+    from repro_torch.distributed.checkpoint import (restore_checkpoint,
+                                                    save_checkpoint)
+    from repro_torch.models import sharding as sh
+    from repro_torch.pytree import tree_leaves
+
+    cfg = configs.get_config(LLAMA)
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    tree = {"embed": {"tok": randn(gen, (cfg.padded_vocab, cfg.d_model),
+                                   torch.float32)},
+            "w": randn(gen, (cfg.d_model, cfg.d_ff), torch.bfloat16),
+            "norm": randn(gen, (cfg.d_model,), torch.float32)}
+    axes = {"embed": {"tok": ("vocab", "embed")}, "w": ("embed", "mlp"),
+            "norm": ("embed",)}
+    shardings = sh.make_param_shardings(mesh, sh.Rules(), axes, tree)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_restore_") as d:
+        save_checkpoint(d, 0, tree)
+        t1 = time.perf_counter()
+        out, _ = restore_checkpoint(d, 0, tree, shardings)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    leaves = list(zip(tree_leaves(tree), tree_leaves(out)))
+    ok = all(isinstance(b, DTensor) and b.device_mesh is mesh
+             and b.dtype == a.dtype and torch.equal(b.to_local(), a)
+             for a, b in leaves)
+    row = dict(leaves=len(leaves), bytes=sum(a.numel() * a.element_size()
+                                             for a, _ in leaves),
+               dtensors_bit_exact=ok, save_s=t1 - t0, restore_s=t2 - t1,
+               placements=[str(b.placements) for _, b in leaves])
+    emit(phase="launch_restore", **row)
+    if not ok:
+        raise AssertionError("restore onto the mesh: not every leaf a DTensor "
+                             "equal to the saved one")
+    return row
+
+
+def launch_roofline(train: dict, prefill_ms: float) -> dict:
+    """(d) and (e): the dry run (op_costs on meta, state bytes on a 1x1
+    mesh) of llama3.2-1b's train step at phase 16(b)'s shape (B=8, S=512,
+    bf16, AdamW, naive) and its serve prefill at phase 7's (16 x 2,048,
+    flash: 16 reports of the kernel's work); each bound against the time
+    this run measured for it (phase 16(b)'s median step, phase 7's
+    prefill), the share (bound / measured) and the MFU (model FLOPs over
+    ms at 989 TFLOP/s); the train cell's state bytes against the card's
+    allocation after the launcher built the same state (within
+    STATE_TOL)."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.mesh import MeshShape
+
+    one = MeshShape(("data", "model"), (1, 1))
+    out_dir = ROOT / "chiprun_out" / "dryrun_torch"
+    cells = {
+        "train": (configs.ShapeSpec("train_launcher", TRAIN_FULL["seq"],
+                                    TRAIN_FULL["batch"], "train"),
+                  train["ms_per_step"], train["tf32"]),
+        "serve_prefill": (configs.ShapeSpec("serve_prefill", 2048, 16,
+                                            "prefill"), prefill_ms, False)}
+    rows = {}
+    for label, (shape, ms, tf32) in cells.items():
+        rec = dryrun.run_cell(LLAMA, None, False, shape=shape, mesh=one,
+                              out_dir=out_dir)
+        if rec["status"] != "ok":
+            raise AssertionError(f"dry run of {label}: {rec.get('error')}")
+        costs = dict(rec["flops_by_dtype"], bytes=rec["bytes_global"])
+        b = roofline.bound_s(costs, tf32=tf32)
+        rows[label] = dict(
+            shape=f"B={shape.global_batch} S={shape.seq_len} "
+                  f"{configs.get_config(LLAMA).dtype}, {rec['impl']}",
+            tf32=tf32, **rec["flops_by_dtype"], bytes=rec["bytes_global"],
+            kernel_reports=rec["kernel_reports"],
+            kernel_reported_flops=rec["kernel_reported_flops"],
+            bound_ms=1e3 * b["bound_s"], bound_by=b["bound_by"],
+            compute_ms=1e3 * b["compute_s"], memory_ms=1e3 * b["memory_s"],
+            measured_ms=ms, share=1e3 * b["bound_s"] / ms,
+            model_flops=rec["model_flops"],
+            mfu=rec["model_flops"] / (ms / 1e3 * H100_BF16_OPS_PER_S),
+            count_s=rec["count_s"], state_bytes=rec["state_bytes_device"])
+        emit(phase="launch_roofline", cell=label, **rows[label])
+    want, got = rows["train"]["state_bytes"], train["state_bytes"]
+    rel = abs(got - want) / want
+    emit(phase="launch_state", dryrun_state_bytes=want,
+         card_state_bytes=got, rel_diff=rel, tol=STATE_TOL)
+    if not rel <= STATE_TOL:
+        raise AssertionError(f"dry run's state {want} B against the card's "
+                             f"{got} B: {rel:.3%} > {STATE_TOL:.0%}")
+    if rows["serve_prefill"]["kernel_reports"] != configs.get_config(
+            LLAMA).n_layers:
+        raise AssertionError("the prefill's count holds "
+                             f"{rows['serve_prefill']['kernel_reports']} "
+                             "flash reports, not one a layer")
+    return rows
+
+
+def phase_launch(train: dict, prefill_ms: float) -> dict:
+    """Phase 17: the launch tooling on the card.  Returns the kernels'
+    launches over the phase (0: the roofline counts flash on meta,
+    through its reports) and the roofline rows."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import uct_backup, uct_select
+
+    t_phase = time.perf_counter()
+    FA.launches = uct_select.launches = uct_backup.launches = 0
+    mesh = launch_world()
+    try:
+        moe_rows = launch_moe(mesh)
+        restore = launch_restore(mesh)
+        rows = launch_roofline(train, prefill_ms)
+    finally:
+        dist.destroy_process_group()
+    launches = {"flash_attention": FA.launches,
+                "uct_select": uct_select.launches,
+                "uct_backup": uct_backup.launches}
+    emit(phase="launch", seconds=time.perf_counter() - t_phase,
+         launches=launches, moe_identical={k: v["identical"]
+                                           for k, v in moe_rows.items()},
+         restore_bit_exact=restore["dtensors_bit_exact"],
+         shares={k: v["share"] for k, v in rows.items()},
+         mfu={k: v["mfu"] for k, v in rows.items()})
+    return {"launches": launches, "rows": rows}
 
 
 def main() -> int:
@@ -3938,7 +4208,7 @@ def main() -> int:
     progress(6)
     phase_lm_prefill()
     progress(7)
-    serve_launches = phase_serve()
+    serve_launches, serve_prefill_ms = phase_serve()
     flash = flash_row()
     progress(8)
     lm_launches = phase_mcts_lm(configs.get_config(LLAMA))
@@ -3973,9 +4243,14 @@ def main() -> int:
     kernels[2]["launches_paligemma_serve"] = encdec["serve"][PALIGEMMA]
     kernels[2]["launches_whisper_f32_prefill"] = encdec["prefill_f32"]
     progress(16)
-    train_launches = phase_train()
+    train_launches, train_full = phase_train()
+    progress(17)
+    launch = phase_launch(train_full, serve_prefill_ms)
     for row in kernels:
         row["launches_training"] = train_launches[row["name"]]
+        row["launches_launch"] = launch["launches"][row["name"]]
+    kernels[2]["reports_launch_prefill"] = \
+        launch["rows"]["serve_prefill"]["kernel_reports"]
     for row in kernels[:2]:
         row["launches_serving"] = serving["launches"][row["name"]]
         row["launches_fused"] = {f"K{K}": fused_launches[K][row["name"]]

@@ -86,6 +86,19 @@ class TreeConfig:
     def vl_const_fx(self) -> int:
         return fx.encode_scalar(self.vl_const)
 
+    def sram_bytes(self) -> dict:
+        """Table I analogue: bytes of accelerator memory per component."""
+        edge_arrays = 4 + (1 if self.score_fn == "puct" else 0)  # child,N,W,VL(,P)
+        node_arrays = 5  # node_N, node_O, num_expanded, num_actions, node_depth
+        per_edge = 4 * edge_arrays
+        per_node = 4 * node_arrays
+        return {
+            "edge_bytes": self.X * self.Fp * per_edge,
+            "node_bytes": self.X * per_node,
+            "log_table_bytes": 4 * (self.X + 2),
+            "total_bytes": self.X * self.Fp * per_edge + self.X * per_node + 4 * (self.X + 2),
+        }
+
 
 def bucket_key(cfg: TreeConfig) -> tuple:
     """Canonical arena-pool bucket of a config: every field that can change

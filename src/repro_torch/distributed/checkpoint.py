@@ -14,9 +14,13 @@ The JAX package's layout and guarantees:
 
 numpy has no bfloat16, so a bf16 leaf is stored as its uint16 bits, with
 "bfloat16" as its dtype in the manifest.  Restore puts each leaf on a
-device: the one given, else the target leaf's.  Restoring onto another
-mesh (the JAX package's NamedSharding path) waits for the port's
-DeviceMesh (ROADMAP.md queue A item 11).
+device (the one given, else the target leaf's), or onto a mesh: the
+elastic-restore path, where the saved layout and the restore mesh may
+differ arbitrarily.  ``shardings`` is then the tree
+models.sharding.make_param_shardings returns, or one ``(mesh,
+placements)`` a leaf, and each host leaf becomes a DTensor on it
+(``distribute_tensor``: every rank reads the whole leaf and keeps its
+shard).
 """
 
 from __future__ import annotations
@@ -89,16 +93,58 @@ def latest_step(ckpt_dir) -> int | None:
     return max(steps) if steps else None
 
 
+def _is_layout(x) -> bool:
+    """A shardings tree's leaf: a MeshSharding or a (mesh, placements)
+    pair."""
+    from repro_torch.models.sharding import MeshSharding
+
+    return isinstance(x, MeshSharding) or (
+        isinstance(x, tuple) and len(x) == 2 and hasattr(x[0], "get_group"))
+
+
+def _layout_leaves(tree) -> list:
+    """A shardings tree's layouts in tree_leaves order (a (mesh,
+    placements) pair is one leaf, not a container)."""
+    if _is_layout(tree) or not isinstance(tree, (dict, list, tuple)):
+        return [tree]
+    kids = [tree[k] for k in sorted(tree)] if isinstance(tree, dict) else tree
+    return [l for c in kids for l in _layout_leaves(c)]
+
+
+def _place(h: torch.Tensor, layout) -> torch.Tensor:
+    """The host leaf h on `layout`: a device, or a mesh layout (a DTensor
+    of h on it)."""
+    if not _is_layout(layout):
+        return h.to(layout)
+    from torch.distributed.tensor import distribute_tensor
+
+    mesh, placements = ((layout.mesh, layout.placements)
+                        if hasattr(layout, "spec") else layout)
+    return distribute_tensor(h.to(mesh.device_type), mesh, list(placements))
+
+
 def restore_checkpoint(ckpt_dir, step: int, target, shardings=None):
     """Restore into the structure, shapes and dtypes of `target` (a tree
-    of tensors); returns (state, manifest).  `shardings`: the device
-    every leaf goes to, or None for the target leaf's device."""
+    of tensors, meta tensors included); returns (state, manifest).
+    `shardings`: None (each leaf on the target leaf's device), one device
+    for every leaf, or a tree like `target` of mesh layouts
+    (MeshSharding or (mesh, placements)) onto which each leaf is
+    distributed as a DTensor."""
     final = pathlib.Path(ckpt_dir) / f"step_{step}"
     manifest = json.loads((final / "manifest.json").read_text())
     leaves = tree_leaves(target)
     if manifest["n_leaves"] != len(leaves):
         raise ValueError(f"checkpoint has {manifest['n_leaves']} leaves, "
                          f"target {len(leaves)}")
+    if shardings is None:
+        layouts = [t.device for t in leaves]
+    elif isinstance(shardings, (dict, list)):
+        layouts = _layout_leaves(shardings)
+        if len(layouts) != len(leaves):
+            raise ValueError(f"shardings hold {len(layouts)} layouts, "
+                             f"target {len(leaves)} leaves")
+    else:
+        layouts = [shardings] * len(leaves)
     out = []
     with np.load(final / "leaves.npz") as data:
         for i, t in enumerate(leaves):
@@ -106,8 +152,7 @@ def restore_checkpoint(ckpt_dir, step: int, target, shardings=None):
             if h.shape != t.shape:
                 raise ValueError(f"leaf {i}: checkpoint shape "
                                  f"{tuple(h.shape)}, target {tuple(t.shape)}")
-            dev = t.device if shardings is None else shardings
-            out.append(h.to(device=dev, dtype=t.dtype))
+            out.append(_place(h.to(dtype=t.dtype), layouts[i]))
     return tree_unflatten(tree_structure(target), out), manifest
 
 

@@ -11,7 +11,11 @@ and ragged Sq / Sk.  The LM's prefill runs it (``impl="flash"``).
 plain version (``flash_attention_plain`` = models.attention's
 ``naive_attention`` with the same masks, cast to q's dtype) on CPU
 tensors.  On a CUDA tensor it launches the kernel or raises; it never
-falls back.  ``launches`` counts kernel launches.
+falls back.  ``launches`` counts kernel launches.  On meta tensors (a
+step counted from shapes, launch/roofline.py) it launches nothing and
+returns an empty meta output.  Under launch.roofline.op_costs it reports
+the function's FLOPs and bytes (``costs``), and its plain version runs
+uncounted.
 
 bf16 runs on the tensor cores (wgmma) with q, k and v brought in by TMA,
 which needs each tensor's base address and its batch, seq and head
@@ -28,6 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.launch import roofline
 
 NAME = "flash_attention"
 HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -50,6 +55,25 @@ def flash_attention_plain(q, k, v, *, causal=True, window=None):
     """The plain version: the port's naive_attention, in q's dtype."""
     from repro_torch.models.attention import naive_attention
     return naive_attention(q, k, v, causal=causal, window=window).to(q.dtype)
+
+
+def attended_pairs(Sq: int, Sk: int, causal: bool, window) -> int:
+    """(query, key) pairs inside the mask: key j of query i when j <= i
+    (causal) and j > i - window (a window)."""
+    i = np.arange(Sq)
+    hi = np.minimum(i + 1, Sk) if causal else np.full(Sq, Sk)
+    lo = np.maximum(0, i - window + 1) if window is not None else np.zeros(Sq)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def costs(q, k, v, causal=True, window=None) -> tuple:
+    """(FLOPs, bytes) of the function: 4 * B * H * dh per attended pair
+    (QK^T and PV), and q, k, v read and the output written once."""
+    B, Sq, H, dh = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    flops = 4 * B * H * dh * attended_pairs(Sq, Sk, causal, window)
+    nbytes = q.element_size() * (2 * B * Sq * H * dh + 2 * B * Sk * Hkv * dh)
+    return flops, nbytes
 
 
 def _check(q, k, v, causal, window):
@@ -103,10 +127,16 @@ def flash_attention(q, k, v, *, causal=True, window=None):
     global launches
     _check(q, k, v, causal, window)
     dev = q.device
+    if roofline.counting():
+        roofline.report(*costs(q, k, v, causal, window), q.dtype)
+    if dev.type == "meta":
+        return torch.empty(q.shape, dtype=q.dtype, device=dev)
     if dev.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
+        with roofline.quiet():
+            return flash_attention_plain(q, k, v, causal=causal, window=window)
     if dev.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda (or cpu: plain), not {dev}")
+        raise ValueError(f"flash_attention runs on cuda (or cpu: plain; "
+                         f"meta: shapes), not {dev}")
     if q.dtype == torch.bfloat16:
         for name, t in (("q", q), ("k", k), ("v", v)):
             check_tma_layout(name, t)

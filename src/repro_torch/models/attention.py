@@ -104,6 +104,26 @@ def init_attn(cfg, gen, spec) -> dict:
 
 # ----------------------------------------------------- blockwise attention
 
+def attn_axes(cfg, spec) -> dict:
+    """init_attn's logical axes."""
+    if cfg.attn_impl == "mla":
+        a = {"wq_a": ("embed", "lora"), "wq_b": ("lora", "heads", "head_dim"),
+             "wkv_a": ("embed", "lora"),
+             "wkv_b": ("lora", "heads", "head_dim"),
+             "wo": ("heads", "head_dim", "embed")}
+    else:
+        a = {"wq": ("embed", "heads", "head_dim"),
+             "wk": ("embed", "kv_heads", "head_dim"),
+             "wv": ("embed", "kv_heads", "head_dim"),
+             "wo": ("heads", "head_dim", "embed")}
+    if spec.cross_attn:
+        a.update(xq=("embed", "heads", "head_dim"),
+                 xk=("embed", "kv_heads", "head_dim"),
+                 xv=("embed", "kv_heads", "head_dim"),
+                 xo=("heads", "head_dim", "embed"), xnorm=L.norm_axes(cfg))
+    return a
+
+
 def _gqa_scores(q, k):
     """q: [B,Sq,H,dh], k: [B,Sk,Hkv,dh] -> f32 [B,H,Sq,Sk] without
     repeating k."""

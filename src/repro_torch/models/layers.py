@@ -2,10 +2,12 @@
 
 Params are plain dicts of tensors with the JAX package's shapes
 (``wi [d, f]``, ``wo [f, d]``, ``tok [V, d]``), so weights carry across
-both packages unchanged.  The JAX package's logical-axes half (``axes``
-for sharding) is dropped: the port runs on one device.  Every ``init_*``
-draws from a ``torch.Generator`` and allocates on that generator's
-device.
+both packages unchanged.  Every ``init_*`` draws from a
+``torch.Generator`` and allocates on that generator's device; on a
+generator whose device is ``meta`` (models.lm.param_shapes) it draws
+nothing and allocates nothing.  Beside each ``init_*`` its ``*_axes``
+gives the JAX package's logical axes of the same tree (a tuple of names
+per tensor dim), which models.sharding maps onto a mesh.
 """
 
 from __future__ import annotations
@@ -38,6 +40,8 @@ _place = None     # set by drawing_into
 def normal(gen: torch.Generator, shape, dtype, scale: float) -> torch.Tensor:
     """N(0, 1) * scale in `dtype`, drawn on the generator's device (inside
     drawing_into(place), written into the tensor place(shape, dtype))."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     x = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
     x.mul_(scale)
     return x.to(dtype) if _place is None else _place(shape, dtype).copy_(x)
@@ -64,6 +68,13 @@ def init_norm(cfg, device) -> dict:
     if cfg.norm == "layernorm":
         p["bias"] = torch.zeros(d, dtype=torch.float32, device=device)
     return p
+
+
+def norm_axes(cfg) -> dict:
+    a = {"scale": ("embed",)}
+    if cfg.norm == "layernorm":
+        a["bias"] = ("embed",)
+    return a
 
 
 def norm(cfg, p, x):
@@ -99,6 +110,13 @@ def init_mlp(cfg, gen, d_ff=None) -> dict:
     return p
 
 
+def mlp_axes(cfg) -> dict:
+    a = {"wi": ("embed", "mlp"), "wo": ("mlp", "embed")}
+    if cfg.gated_mlp:
+        a["wg"] = ("embed", "mlp")
+    return a
+
+
 def mlp(cfg, p, x):
     h = x @ p["wi"]
     if cfg.gated_mlp:
@@ -116,6 +134,13 @@ def init_embed(cfg, gen) -> dict:
     if not cfg.tie_embeddings:
         p["out"] = normal(gen, (d, v), torch.float32, 0.02)
     return p
+
+
+def embed_axes(cfg) -> dict:
+    a = {"tok": ("vocab", "embed")}
+    if not cfg.tie_embeddings:
+        a["out"] = ("embed", "vocab")
+    return a
 
 
 def embed(cfg, p, tokens):
@@ -167,6 +192,10 @@ def rope(x, positions, theta: float):
 def init_conv1d(gen, width: int, channels: int) -> dict:
     return {"w": normal(gen, (width, channels), torch.float32, 0.1),
             "b": torch.zeros(channels, dtype=torch.float32, device=gen.device)}
+
+
+def conv1d_axes() -> dict:
+    return {"w": (None, "mlp"), "b": ("mlp",)}
 
 
 def causal_conv1d(p, x, state=None):

@@ -31,7 +31,11 @@ has sinusoidal embeddings); a prefix puts the patches at positions
 launcher sizes it without P; launch/serve.py says what that costs).
 
 ``from_jax_params`` carries the JAX package's ``init_params`` tree (as
-numpy) across, bf16 leaves included, bit for bit.
+numpy) across, bf16 leaves included, bit for bit.  ``param_shapes`` is
+the same tree on the ``meta`` device (no draw, no allocation: the port's
+``jax.eval_shape`` of the init) and ``param_axes`` its logical axes
+(models.sharding), built beside the init by the ``*_axes`` of each
+layer module, with ``"stack"`` ahead of a stacked layer's axes.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import rglru as R
+from repro_torch.models import sharding as sh
 from repro_torch.models import ssd as SSD
 from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.pytree import tree_map
@@ -90,6 +95,26 @@ def _init_layer(cfg, spec: LayerSpec, gen) -> dict:
     return p
 
 
+def _layer_axes(cfg, spec: LayerSpec) -> dict:
+    """_init_layer's logical axes."""
+    a = {"norm_in": L.norm_axes(cfg)}
+    if spec.kind == "attn":
+        a["mix"] = A.attn_axes(cfg, spec)
+    elif spec.kind == "ssd":
+        a["mix"] = SSD.ssd_axes()
+    else:
+        a["mix"] = R.rglru_axes()
+    if spec.mlp == "dense":
+        a["norm_mlp"], a["mlp"] = L.norm_axes(cfg), L.mlp_axes(cfg)
+    elif spec.mlp == "moe":
+        a["norm_mlp"], a["moe"] = L.norm_axes(cfg), M.moe_axes(cfg)
+    return a
+
+
+def _stack_axes(a: dict) -> dict:
+    return tree_map(lambda t: ("stack",) + t, a, is_leaf=sh.is_axes)
+
+
 def _stack(layers: list) -> dict:
     if isinstance(layers[0], dict):
         return {k: _stack([l[k] for l in layers]) for k in layers[0]}
@@ -101,7 +126,11 @@ def _init_stack(cfg, spec: LayerSpec, gen, repeats: int, device) -> dict:
     stacks on `device`.  Every normal() draw goes straight into its row
     (the generator's order is that of drawing the layers one by one), so
     no layer is held beside the stack (a deepseek-v3 MoE layer is 23 GB
-    in bf16); the few other leaves (norm scales) are copied in."""
+    in bf16); the few other leaves (norm scales) are copied in.  On the
+    meta device nothing is drawn: the stacks are empty meta tensors."""
+    if torch.device(device).type == "meta":
+        layer = _init_layer(cfg, spec, gen)
+        return tree_map(lambda t: t.new_empty((repeats, *t.shape)), layer)
     drawn = []      # the stack of each normal() draw, in the order drawn
     stack = None
     for r in range(repeats):
@@ -155,6 +184,37 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device) -> dict:
     return tree_map(lambda t: t.to(device), p)
 
 
+class _MetaGenerator:
+    """Stands where a torch.Generator does in init_params: layers.normal
+    draws nothing on its device and returns an empty meta tensor."""
+    device = torch.device("meta")
+
+
+def param_shapes(cfg: ModelConfig) -> dict:
+    """init_params' tree on the meta device: every leaf's shape and
+    dtype, nothing drawn or allocated (deepseek-v3-671b's 671e9
+    parameters included)."""
+    return init_params(cfg, _MetaGenerator(), "meta")
+
+
+def param_axes(cfg: ModelConfig) -> dict:
+    """Logical-axes tree matching init_params' structure: a tuple of
+    names per leaf (models.sharding maps them onto a mesh)."""
+    _check_supported(cfg)
+    a = {"embed": L.embed_axes(cfg)}
+    for gi, (pattern, _) in enumerate(cfg.groups):
+        a[f"g{gi}"] = [_stack_axes(_layer_axes(cfg, spec)) for spec in pattern]
+    a["final_norm"] = L.norm_axes(cfg)
+    if cfg.encoder is not None:
+        a["encoder"] = {"layers": _stack_axes(_layer_axes(cfg, ENC_SPEC)),
+                        "norm": L.norm_axes(cfg)}
+    if cfg.mtp:
+        a["mtp"] = {"proj": ("embed", "embed"),
+                    "block": _layer_axes(cfg, MTP_SPEC),
+                    "norm": L.norm_axes(cfg)}
+    return a
+
+
 def _leaf_from_numpy(a, device) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
@@ -204,14 +264,14 @@ def _block(cfg, spec: LayerSpec, p, x, positions, cache, impl, enc_out=None):
         mix, cache = R.rglru_forward(cfg, p["mix"], h, cache)
     # the residual stream stays in cfg.dtype (attention and the MoE
     # upcast to f32)
-    x = x + mix.to(x.dtype)
+    x = sh.constrain(x + mix.to(x.dtype), ("batch", "seq", "embed"))
     aux = None
     if spec.mlp == "dense":
         x = x + L.mlp(cfg, p["mlp"], L.norm(cfg, p["norm_mlp"], x)).to(x.dtype)
     elif spec.mlp == "moe":
         y, aux = M.moe_forward(cfg, p["moe"], L.norm(cfg, p["norm_mlp"], x))
         x = x + y.to(x.dtype)
-    return x, aux
+    return sh.constrain(x, ("batch", "seq", "embed")), aux
 
 
 def _cross(cfg, p, x, cache, enc_out, impl):
@@ -260,6 +320,7 @@ def hidden_states(cfg: ModelConfig, params, tokens, positions=None, caches=None,
         x = torch.cat([patches.to(x.dtype), x], dim=1)
     if positions is None:
         positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    x = sh.constrain(x, ("batch", "seq", "embed"))
     if cfg.encoder is not None and enc_out is None and frames is not None:
         enc_out = encode(cfg, params, frames, impl)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -288,7 +349,8 @@ def forward(cfg: ModelConfig, params, tokens, positions=None, caches=None,
     head's input)."""
     x, aux = hidden_states(cfg, params, tokens, positions, caches, impl,
                            patches, frames, enc_out)
-    logits = L.unembed(cfg, params["embed"], x)
+    logits = sh.constrain(L.unembed(cfg, params["embed"], x),
+                          ("batch", "seq", "vocab"))
     if return_hidden:
         return logits, caches, aux, x
     return logits, caches, aux

@@ -32,8 +32,26 @@ Where the JAX package and torch differ:
 
 Capacity is ``max(8, ceil8(ceil(T*K/E*cf)))`` over every token of the
 call (T = B*S), so rows of one call compete for it: a caller must not
-split a call's tokens across calls.  The multi-device form
-(``_moe_shard_map``) waits for DeviceMesh (ROADMAP.md queue A item 11).
+split a call's tokens across calls.
+
+The shard-map expert path (``_moe_shard_map``, taken under a mesh context
+whose rules set ``moe_shard_map``): torch has no ``shard_map``, so it is
+written SPMD by hand over the processes of a ``DeviceMesh``.  Each rank
+takes the global tokens and weights, keeps its data shard of the tokens
+and its shard of each weight (by its mesh coordinates and
+``spec_for_param``'s specs), all-gathers any FSDP-sharded weight dim over
+the data axes (``_gather_fsdp``), runs the four steps above on its local
+tokens (capacity from the local T, as the JAX path computes it), sums the
+f-contraction partials over the model axes (all-reduce), and all-gathers
+y over the data axes, so every rank returns the global y.  aux is the
+first data shard's own aux, broadcast from it: the JAX path returns shard
+0's value (``out_specs=P()`` without a replication check), not the
+global aux, and the port returns the same.  Sharding the expert dim over
+the model axes (``Rules(shard_experts=True)`` with E divisible) would hand
+each rank a slice of the experts its local router still routes to: the
+JAX path fails there with an einsum shape error, and the port raises a
+ValueError instead.  The path runs forward only: ``torch.distributed``'s
+collectives record no gradient.
 """
 
 from __future__ import annotations
@@ -45,6 +63,8 @@ import numpy as np
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.models import sharding as sh
+from repro_torch.pytree import tree_map
 
 
 def init_moe(cfg, gen) -> dict:
@@ -58,6 +78,17 @@ def init_moe(cfg, gen) -> dict:
         p["shared"] = L.init_mlp(cfg, gen,
                                  d_ff=cfg.moe_d_ff * cfg.n_shared_experts)
     return p
+
+
+def moe_axes(cfg) -> dict:
+    """init_moe's logical axes (the JAX package's ``_moe_axes``)."""
+    a = {"router": ("embed", "experts"),
+         "wi": ("experts", "embed", "mlp"),
+         "wg": ("experts", "embed", "mlp"),
+         "wo": ("experts", "mlp", "embed")}
+    if cfg.n_shared_experts:
+        a["shared"] = L.mlp_axes(cfg)
+    return a
 
 
 @dataclasses.dataclass
@@ -140,12 +171,21 @@ def experts(cfg, p, xf, dsp: Dispatch) -> torch.Tensor:
     xe = xe * filled[:, None].to(xf.dtype) if grad \
         else xe.mul_(filled[:, None].to(xf.dtype))
     xe = xe.reshape(E, C, -1)
+    # pinned to (experts, capacity over the data axes) under a mesh whose
+    # rules ask for it (the JAX package's moe_constraints)
+    mesh, rules = sh.get_context()
+    pin = mesh is not None and rules.moe_constraints
+    if pin:
+        xe = sh.constrain(xe, ("experts", "batch", None))
     h = torch.bmm(xe, p["wi"])
     g = torch.bmm(xe, p["wg"])
     del xe
     h = L.act_fn(cfg)(g) * h if grad else L.act_fn(cfg)(g).mul_(h)
     del g
-    return torch.bmm(h, p["wo"]).reshape(E * C, -1)
+    ye = torch.bmm(h, p["wo"])
+    if pin:
+        ye = sh.constrain(ye, ("experts", "batch", None))
+    return ye.reshape(E * C, -1)
 
 
 def combine(ye, dsp: Dispatch) -> torch.Tensor:
@@ -172,8 +212,21 @@ def combine(ye, dsp: Dispatch) -> torch.Tensor:
 def moe_forward(cfg, p, x, capacity_factor: float = 1.25):
     """x: [B, S, d] -> (y [B, S, d], the load-balance aux loss)."""
     B, S, d = x.shape
-    T, E, K = B * S, cfg.n_experts, cfg.top_k
-    xf = x.reshape(T, d)
+    mesh, rules = sh.get_context()
+    if mesh is not None and rules.moe_shard_map:
+        y, aux = _moe_shard_map(cfg, p, x.reshape(B * S, d), capacity_factor,
+                                mesh, rules)
+        return y.reshape(B, S, d), aux
+    return _moe_dense(cfg, p, x, capacity_factor)
+
+
+def _local_expert_ffn(cfg, p, xf, capacity_factor: float = 1.25):
+    """(y [T, d] in the weights' dtype, the aux loss) of tokens xf [T, d]
+    through weights p: the one-device MoE, and one rank's local work in
+    the shard-map path (where y is a partial sum over the f dim when the
+    weights are split over the model axes)."""
+    T, d = xf.shape
+    E, K = cfg.n_experts, cfg.top_k
     probs = route(p, xf)
     dsp = dispatch(probs, K, capacity_factor)
     y = combine(experts(cfg, p, xf, dsp), dsp)
@@ -183,4 +236,95 @@ def moe_forward(cfg, p, x, capacity_factor: float = 1.25):
     me = probs.mean(0)                                      # mean router prob
     ce = expert_counts(dsp.eidx, E).float() / (T * K)      # token fraction
     aux = E * torch.sum(me * ce)
+    return y, aux
+
+
+def _moe_dense(cfg, p, x, capacity_factor):
+    B, S, d = x.shape
+    y, aux = _local_expert_ffn(cfg, p, x.reshape(B * S, d), capacity_factor)
     return y.reshape(B, S, d), aux
+
+
+# --------------------------------------------------------------------------
+# the shard-map expert path, SPMD over a DeviceMesh
+# --------------------------------------------------------------------------
+
+def _coord(mesh, names) -> tuple:
+    """(index, count) of this rank's block over the mesh axes `names`
+    (major first), from its mesh coordinates."""
+    sizes = sh.mesh_sizes(mesh)
+    coord = dict(zip(sh.mesh_axis_names(mesh), mesh.get_coordinate()))
+    idx = 0
+    for n in names:
+        idx = idx * sizes[n] + coord[n]
+    return idx, int(np.prod([sizes[n] for n in names])) if names else 1
+
+
+def _local_shard(w, spec, mesh):
+    """This rank's block of the global tensor w under `spec`."""
+    for dim, entry in enumerate(spec):
+        names = sh.spec_names(entry)
+        if names:
+            i, n = _coord(mesh, names)
+            w = w.chunk(n, dim)[i]
+    return w
+
+
+def _gather(w, dim, mesh, names):
+    """All-gather w along `dim` over the mesh axes `names` (tiled: the
+    blocks in the order of the ranks' flattened coordinates)."""
+    import torch.distributed as dist
+
+    for n in reversed(names):        # the minor axis first
+        group = mesh.get_group(n)
+        parts = [torch.empty_like(w) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, w.contiguous(), group=group)
+        w = torch.cat(parts, dim)
+    return w
+
+
+def _gather_fsdp(w, spec, mesh, data_axes):
+    """ZeRO-3 weight re-gather: any dim the FSDP rules split over the data
+    axes is all-gathered before use."""
+    for dim, entry in enumerate(spec):
+        g = tuple(n for n in sh.spec_names(entry) if n in data_axes)
+        if g:
+            w = _gather(w, dim, mesh, g)
+    return w
+
+
+def _moe_shard_map(cfg, p, xf, capacity_factor, mesh, rules):
+    """(y [T, d], aux) of the global tokens xf [T, d], every rank of
+    `mesh` computing its block (see the module docstring)."""
+    import torch.distributed as dist
+
+    names = sh.mesh_axis_names(mesh)
+    data_axes = tuple(a for a in rules.batch if a in names)
+    model_axes = tuple(a for a in rules.model if a in names)
+    axes = moe_axes(cfg)
+    specs = tree_map(lambda ax, w: sh.spec_for_param(mesh, rules, ax,
+                                                     tuple(w.shape)),
+                     axes, p, is_leaf=sh.is_axes)
+    for key in ("router", "wi", "wg", "wo"):
+        i = axes[key].index("experts")
+        if set(sh.spec_names(specs[key][i])) & set(model_axes):
+            raise ValueError(
+                f"{cfg.name}: Rules(shard_experts=True) splits the expert dim "
+                f"of {key} {tuple(p[key].shape)} over the model axes "
+                f"{model_axes}, and the shard-map path needs every expert on "
+                f"every rank (its local router routes to all {cfg.n_experts}): "
+                f"use Rules(shard_experts=False), as specs.OPTIMIZED_RULES "
+                f"does")
+    local = tree_map(lambda w, s: _gather_fsdp(_local_shard(w, s, mesh), s,
+                                               mesh, data_axes),
+                     p, specs, is_leaf=lambda x: isinstance(x, sh.P))
+    di, dn = _coord(mesh, data_axes)
+    y, aux = _local_expert_ffn(cfg, local, xf.chunk(dn, 0)[di],
+                               capacity_factor)
+    for n in model_axes:             # the f-contraction partials
+        dist.all_reduce(y, group=mesh.get_group(n))
+    aux = aux.detach().clone()
+    for n in data_axes:              # data shard 0's aux, as JAX returns
+        group = mesh.get_group(n)
+        dist.broadcast(aux, src=dist.get_global_rank(group, 0), group=group)
+    return _gather(y, 0, mesh, data_axes), aux

@@ -48,6 +48,14 @@ def init_rglru(cfg, gen) -> dict:
     }
 
 
+def rglru_axes() -> dict:
+    """init_rglru's logical axes."""
+    return {"in_x": ("embed", "mlp"), "in_gate": ("embed", "mlp"),
+            "conv": L.conv1d_axes(), "wa": ("mlp", None), "ba": ("mlp",),
+            "wx": ("mlp", None), "bx": ("mlp",), "lam": ("mlp",),
+            "out": ("mlp", "embed")}
+
+
 def linear_scan(a, b, h0, chunk: int = SCAN_CHUNK):
     """h_t = a_t h_{t-1} + b_t over axis 1 of a, b [B, S, w] (f32), from
     h0 [B, w]; returns every h_t [B, S, w].

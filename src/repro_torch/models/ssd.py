@@ -40,6 +40,13 @@ def init_ssd(cfg, gen) -> dict:
     }
 
 
+def ssd_axes() -> dict:
+    """init_ssd's logical axes."""
+    return {"in_proj": ("embed", "mlp"), "conv": L.conv1d_axes(),
+            "A_log": (None,), "dt_bias": (None,), "D": (None,),
+            "out_proj": ("mlp", "embed")}
+
+
 def _split(cfg, zxbcdt):
     di, ns = cfg.ssd_d_inner, cfg.ssd_state
     return (zxbcdt[..., :di], zxbcdt[..., di:2 * di + 2 * ns],

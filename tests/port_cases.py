@@ -39,7 +39,9 @@ repro_torch (no copy of it exists).  The rewrite:
     bodies' ``jnp`` calls make torch tensors (float64 input as float32,
     as JAX makes it) and ``jax.random.normal`` draws JAX's numbers into
     one, so the optimizers, compression and checkpoints run on the port's
-    trees; ``train_main`` (the launcher) gets ``device="cpu"``.
+    trees; ``train_main`` (the launcher) gets ``device="cpu"``, and
+    ``jax.make_mesh`` gives the mesh's shape (launch.mesh.MeshShape), which
+    is all the sharding rules read.
 
 ``cases(module, exclude)`` expands each remaining test function's
 ``pytest.mark.parametrize`` marks into (id, function, kwargs) cases for
@@ -232,9 +234,17 @@ def _ported_greedy_reference(cfg, params, prompt, n_new):
                                                         n_new)
 
 
+def _mesh_shape(shape, axes):
+    """jax.make_mesh on the port: the mesh's names and sizes (a
+    launch.mesh.MeshShape), all the sharding rules read."""
+    from repro_torch.launch.mesh import MeshShape
+    return MeshShape(tuple(axes), tuple(shape))
+
+
 JAX_TRAIN_SHIM = types.SimpleNamespace(
     tree=_JaxTree(), random=types.SimpleNamespace(PRNGKey=_jax_key,
-                                                  normal=_jax_normal))
+                                                  normal=_jax_normal),
+    make_mesh=_mesh_shape)
 JNP_TRAIN_SHIM = types.SimpleNamespace(
     asarray=_tensor, arange=lambda n, dtype=None: torch.arange(n, dtype=dtype),
     ones=lambda shape, dtype=torch.float32: torch.ones(shape, dtype=dtype),

@@ -33,7 +33,11 @@ whole SMOKE mixtral / deepseek-v3 on the card against the CPU; the SMOKE
 whisper-small and paligemma-3b's prefill (frames, patches) and decode on
 the card against the CPU.  Three train steps of eight SMOKE archs on the
 card against the CPU (no kernel launches), and impl="flash" under
-autograd raising before it launches.
+autograd raising before it launches.  The straggler-masked superstep
+(tests/test_mcts_system.py) on the cuda executor against the reference.
+The launch tooling on an NCCL world of one: collectives bit for bit with
+their recorded bytes, the SMOKE MoE shard-map path identical to dense on
+the card's 1x1 mesh, and a restore onto that mesh as DTensors.
 """
 
 import numpy as np
@@ -1161,3 +1165,132 @@ def test_flash_under_autograd_raises_on_card():
         A.attn_forward(cfg, spec, layer, x, pos, impl="flash")
     torch.cuda.synchronize()
     assert FA.launches == n + 1
+
+
+@pytest.mark.cuda
+def test_straggler_masked_superstep_on_card():
+    """The cuda leg of tests/test_mcts_system.py's
+    test_straggler_masked_superstep: random workers miss the barrier every
+    superstep (their backups recover virtual loss only); the card's tree
+    equals the reference executor's bit for bit, stays quiescent (VL == 0,
+    O == 0), and the dropped workers add no visits."""
+    need_cuda()
+    from repro_torch.core import RolloutBackend, TreeParallelMCTS
+
+    env = BanditTreeEnv(fanout=4, terminal_depth=8)
+    cfg = TreeConfig(X=128, F=4, D=5)
+
+    def run(executor, device, faults=True):
+        m = TreeParallelMCTS(cfg, env, RolloutBackend(env, max_steps=8, seed=7),
+                             p=8, executor=executor, seed=3, device=device)
+        rng = np.random.RandomState(99)
+        for _ in range(5):
+            m.superstep(fault_injector=(lambda p: rng.rand(p) > 0.3)
+                        if faults else None)
+        return m.exec.snapshot(m.tree)
+
+    a, b = run("reference", "cpu"), run("cuda", "cuda")
+    for k in a:
+        if k != "log_table":
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    assert np.all(b["edge_VL"] == 0) and np.all(b["node_O"] == 0)
+    assert b["node_N"][0] < run("cuda", "cuda", faults=False)["node_N"][0]
+
+
+# ------------------------------------------- the launch tooling (phase 17)
+
+@pytest.fixture
+def nccl_world(tmp_path, monkeypatch):
+    """A world of one on the card (NCCL through a FileStore) and its 1x1
+    (data, model) DeviceMesh; the group is destroyed afterwards."""
+    need_cuda()
+    import torch.distributed as dist
+
+    from repro_torch.launch.distributed_init import init_distributed
+    from repro_torch.launch.mesh import make_host_mesh
+
+    for k in ("REPRO_NUM_PROCESSES", "REPRO_PROCESS_ID"):
+        monkeypatch.delenv(k, raising=False)
+    info = init_distributed(store=dist.FileStore(str(tmp_path / "store"), 1))
+    try:
+        assert info["backend"] == "nccl"
+        yield make_host_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_collectives_on_card_bit_exact(nccl_world, dtype):
+    """all_reduce, all_gather and broadcast on a world of one on the card
+    return the seeded tensor bit for bit; the recorder counts each one's
+    result bytes."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import collectives
+
+    mesh = nccl_world
+    assert mesh.device_type == "cuda" and tuple(mesh.shape) == (1, 1)
+    x = torch.from_numpy(np.random.RandomState(0).randn(64, 96).astype(
+        np.float32)).to(dtype).cuda()
+    t = x.clone()
+    with collectives.record() as rec:
+        dist.all_reduce(t, group=mesh.get_group("model"))
+        parts = [torch.empty_like(t)]
+        dist.all_gather(parts, t, group=mesh.get_group("data"))
+        dist.broadcast(t, src=0)
+    torch.cuda.synchronize()
+    assert torch.equal(t, x) and torch.equal(parts[0], x)
+    n = x.numel() * x.element_size()
+    assert (rec.bytes["all_reduce"], rec.bytes["all_gather"],
+            rec.bytes["broadcast"], rec.bytes["total"]) == (n, n, n, 3 * n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "deepseek-v3-671b"])
+def test_moe_shard_map_on_card_identical_to_dense(nccl_world, arch):
+    """The SMOKE MoE layer through the shard-map path on the card's 1x1
+    mesh (the arch's train_4k rules of specs.OPTIMIZED_RULES): y and aux
+    identical to the dense path's; the model all-reduce of y recorded."""
+    from repro_torch import configs
+    from repro_torch.launch import collectives, specs
+    from repro_torch.models import moe, sharding as sh
+
+    cfg = configs.get_config(arch, smoke=True)
+    p = moe.init_moe(cfg, torch.Generator(device="cuda").manual_seed(0))
+    x = torch.randn(4, 16, cfg.d_model, device="cuda")
+    y0, aux0 = moe.moe_forward(cfg, p, x)
+    sh.set_context(nccl_world, specs.OPTIMIZED_RULES[(arch, "train_4k")])
+    try:
+        with collectives.record() as rec:
+            y1, aux1 = moe.moe_forward(cfg, p, x)
+    finally:
+        sh.set_context(None)
+    assert torch.equal(y0, y1) and torch.equal(aux0, aux1)
+    assert rec.bytes["all_reduce"] == y1.numel() * y1.element_size()
+
+
+@pytest.mark.cuda
+def test_restore_onto_card_mesh(nccl_world, tmp_path):
+    """SMOKE llama3.2-1b's parameters saved and restored onto the card's
+    mesh with make_param_shardings' tree: every leaf a DTensor on the
+    mesh, equal to the saved leaf bit for bit."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import configs
+    from repro_torch.distributed.checkpoint import (restore_checkpoint,
+                                                    save_checkpoint)
+    from repro_torch.models import lm, sharding as sh
+    from repro_torch.pytree import tree_leaves
+
+    cfg = configs.get_config("llama3.2-1b", smoke=True)
+    params = lm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                            "cuda")
+    save_checkpoint(tmp_path, 1, params)
+    shd = sh.make_param_shardings(nccl_world, sh.Rules(), lm.param_axes(cfg),
+                                  params)
+    out, _ = restore_checkpoint(tmp_path, 1, params, shd)
+    for a, b in zip(tree_leaves(params), tree_leaves(out)):
+        assert isinstance(b, DTensor) and b.device_mesh is nccl_world
+        assert b.to_local().is_cuda and torch.equal(b.to_local(), a)

@@ -66,6 +66,9 @@ def test_import_loads_no_jax_module():
         "import repro_torch.optim, repro_torch.optim.compression\n"
         "import repro_torch.data, repro_torch.distributed\n"
         "import repro_torch.launch.specs, repro_torch.launch.train\n"
+        "import repro_torch.launch.collectives, repro_torch.launch.dryrun\n"
+        "import repro_torch.launch.distributed_init\n"
+        "import repro_torch.launch.roofline\n"
         "import repro_torch.pytree\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"

@@ -149,16 +149,7 @@ def test_unported_executor_names_raise():
 
 # ------------------------- the JAX package's main-path suites on the port
 
-UNPORTED = {
-    "test_ordered_i32_bijection": "needs the range-analysis helpers "
-                                  "(f32_to_ordered_i32 / ordered_i32_to_f32, "
-                                  "src/repro/core/fixedpoint.py:60-90), "
-                                  "ROADMAP.md queue A item 12",
-    "test_bitwidth_sizing_rule": "needs the range-analysis helpers "
-                                 "(integer_bits_for, uct_upper_bound) and "
-                                 "TreeConfig.sram_bytes, ROADMAP.md queue A "
-                                 "item 12",
-}
+UNPORTED: dict = {}
 CASES = [c for m in ("test_reroot", "test_equivalence", "test_fixedpoint")
          for c in port_cases.cases(m, UNPORTED)]
 

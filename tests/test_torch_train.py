@@ -443,12 +443,12 @@ def test_async_save_snapshots_before_return(tmp_path, monkeypatch):
 # ---------------- the JAX package's own test bodies on the port (port_cases)
 
 UNPORTED = {
-    "test_param_spec_fallbacks": "repro.models.sharding's spec rules: the "
-                                 "port's DeviceMesh, ROADMAP.md A11",
-    "test_constrain_noop_without_mesh": "repro.models.sharding.constrain: "
-                                        "A11",
-    "test_elastic_restore_new_sharding": "restore onto a NamedSharding: the "
-                                         "port's DeviceMesh, A11",
+    "test_elastic_restore_new_sharding": "asserts jax's NamedSharding on the "
+                                         "restored leaves; its twin "
+                                         "test_torch_launch.py::"
+                                         "test_restore_onto_mesh restores "
+                                         "onto a 1x1 gloo DeviceMesh and "
+                                         "checks for DTensors",
 }
 CASES = (port_cases.cases("test_optim_sharding_data", UNPORTED)
          + port_cases.cases("test_checkpoint", UNPORTED))
