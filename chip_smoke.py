@@ -69,7 +69,7 @@ Phases (each raises on any failure, so the exit code is not 0):
      boolean mask, the kernel it ran named, and SDPA's causal path);
   8. the paper's MCTS with the LM as its simulation at full width, bf16:
      TreeParallelMCTS(X=256, F=6, D=4, p=16) over LMTreeEnv and
-     LMContinuationBackend, two run_step() calls of at most 16
+     LMContinuationBackend, two run_step() calls of at most 4
      supersteps (the second re-rooting), held superstep by superstep against the numpy oracle executor
      replaying the recorded env steps and values; then where its
      superstep goes (one expansion's forward, a decode step, the host
@@ -108,7 +108,7 @@ Phases (each raises on any failure, so the exit code is not 0):
      sub-arenas, the kernels' launches equal to the replays plus the
      eager launches, and retired pools freeing their memory;
      searches/s, ms per dispatch by part, and the device's busy share
-     over a profiled window of 40 ticks; then four alternating pairs of
+     over a profiled window of 40 ticks; then two alternating pairs of
      the stream at K=1 and K=8, each held to the oracle, for the ratio
      of their speeds;
  11. pipelined gangs and sharded pools on phase 9's stream: (a) the
@@ -144,8 +144,8 @@ Phases (each raises on any failure, so the exit code is not 0):
      SearchClient (G=8) over CachedSimBackend(SimServer(max_batch=64)),
      equal to a numpy-oracle client's, cache off equal to cache on with
      cache hits, every forward 64 rows, K=8 equal to K=1; (e) the stream
-     with overlap=True, two gangs, held to an overlap oracle, and two
-     alternating overlap / lock-step pairs for the ratio of their speeds;
+     with overlap=True, two gangs, held to an overlap oracle, and one
+     overlap / lock-step pair for the ratio of their speeds;
  13. the recurrent LM families at full width and depth: (a) mamba2-2.7b
      in an f32 copy (TF32 off), 4 prompts of 512 tokens prefilled by the
      chunked SSD scan and 32 greedy tokens decoded by the recurrence,
@@ -161,7 +161,7 @@ Phases (each raises on any failure, so the exit code is not 0):
      ring buffer's wrap, every row within 2e-3 of the teacher-forced
      forward; (d) TreeParallelMCTS(X=256, F=6, D=4, p=16) over LMTreeEnv
      and LMContinuationBackend(pool_size=16) at mamba2-2.7b, bf16, one
-     run_step() of at most 16 supersteps held superstep by superstep to
+     run_step() of at most 4 supersteps held superstep by superstep to
      the numpy oracle
      replaying the recorded env steps and values, then where its
      superstep goes; (e) a ContinuousBatcher of 2 slots over both archs
@@ -187,7 +187,7 @@ Phases (each raises on any failure, so the exit code is not 0):
      bf16, 16 x 2,048 + 64: prefill ms, decode tokens/s, peak memory, the
      prefill's dropped share, 8 flash launches for mixtral and none for
      deepseek; (e) TreeParallelMCTS(X=256, F=6, D=4, p=16) over mixtral
-     at 8 layers, one run_step() of at most 16 supersteps against the
+     at 8 layers, one run_step() of at most 4 supersteps against the
      numpy oracle; (f) one MoE
      layer's prefill and decode step by part (router, dispatch, experts,
      combine, shared expert), one MLA layer's prefill and decode steps,
@@ -217,7 +217,7 @@ Phases (each raises on any failure, so the exit code is not 0):
      plain torch under autograd: the training path runs none of the three
      kernels, and each row of the kernels line counts its launches there,
      0): (a) llama3.2-1b at its width with 2 layers in f32 (TF32 off), one
-     seeded CPU init moved to the card, 3 train steps of B=2, S=64
+     seeded CPU init moved to the card, 2 train steps of B=2, S=64
      (naive, AdamW) on both, loss, nll and grad_norm within 1e-4
      relative at every step; (b) llama3.2-1b at full width and depth,
      20 steps of B=8, S=512, bf16, naive, AdamW: every loss finite, the
@@ -247,7 +247,29 @@ Phases (each raises on any failure, so the exit code is not 0):
      reports), each bound against the time this run measured for it: the
      share and the MFU; (e) the dry run's state bytes of that train cell
      on a 1x1 mesh against the card's allocation after the launcher built
-     the same state in 16(b), within 2%.
+     the same state in 16(b), within 2%;
+ 18. the five examples as entry points of the port (src/repro_torch/
+     examples/), each run in this process through its main(argv) with
+     its printed lines captured, every kernel count set to 0 just before
+     each card run and read just after: (a) quickstart on the card
+     (cuda executor, RolloutBackend on the host) against --device cpu
+     (faithful): the five steps' actions, rewards and superstep counts
+     identical, each tree kernel once a superstep; (b) service_demo on
+     cuda against faithful on the card, every req line identical: the
+     SearchService mode at K = 1 and 8, --client under each of the three
+     policies, --client --overlap --expansion pool --gangs 2, --client
+     --shards 2, --frontend, and --client --trace-out --metrics, whose
+     trace must parse as Chrome-trace JSON; (c) gomoku_selfplay --games 2
+     --p 8 against the reference executor over the same backend, every
+     game's moves identical, each round's value loss on the card within
+     1e-5 of the same training on the CPU; (d) lm_mcts_decode --tokens 6
+     against the reference executor over the same seeded LM, the decoded
+     sequence identical; (e) train_lm at CFG_100M (4 x 256): 20 steps,
+     then a resume to 40 that must print "resumed at 20", every loss
+     identical to an uninterrupted 40-step run's, with ms a step,
+     tokens/s and peak memory.  The kernels line's rows gain
+     launches_examples (each twin's launches; train_lm's are 0: it trains
+     blockwise, and the flash kernel has no backward).
 
 It prints JSON lines; the line before the last is {"kernels": [...]} and
 the last is {"ok": true, "device": {...}}.  It imports nothing of the JAX
@@ -1155,7 +1177,8 @@ def attn_layers(cfg) -> int:
     return sum(spec.kind == "attn" for spec in cfg.layer_specs())
 
 
-MCTS_LM_SUPERSTEPS = 16     # a run_step()'s cap in phases 8, 13 and 14
+MCTS_LM_SUPERSTEPS = 4      # a run_step()'s cap in phases 8, 13 and 14
+                            # (16 until phase 18 came in: cut for time)
 
 
 def phase_mcts_lm(cfg, reuses=(False, True)):
@@ -1245,7 +1268,7 @@ def phase_mcts_lm(cfg, reuses=(False, True)):
     return launches
 
 
-PROFILED_CALLS = 2   # key_averages() takes the host ~0.3 ms an event
+PROFILED_CALLS = 1   # key_averages() takes the host ~0.3 ms an event
 
 
 def wall_and_device_ms(fn, n: int) -> dict:
@@ -1681,7 +1704,7 @@ def insert_finalize_times(mc):
 # ---------------------------------------------------------------------------
 
 FUSED_KS = (8, 32)
-FUSED_PAIRS = 4     # alternating K=1 / K=8 stream pairs for the ratio
+FUSED_PAIRS = 2     # alternating K=1 / K=8 stream pairs for the ratio
 
 
 def partial_env():
@@ -2279,7 +2302,7 @@ GOMOKU_C, GOMOKU_P, GOMOKU_G = 32, 16, 8
 NN_BATCHES = (1, 16, 64, 256)
 NN_TOL = 1e-5            # card vs CPU, f32 with TF32 off
 NN_MAX_BATCH, NN_CACHE = 64, 8192
-GOMOKU_REQUESTS, GOMOKU_PAIRS = 12, 2
+GOMOKU_REQUESTS, GOMOKU_PAIRS = 12, 1
 GOMOKU_WINDOW = 20       # supersteps under the profiler
 
 
@@ -3611,7 +3634,7 @@ TRAIN_FULL = dict(steps=20, batch=8, seq=512)     # (b) llama3.2-1b, full depth
 TRAIN_PROFILED = 10    # (b)'s step run under the profiler (not in the median)
 TRAIN_REPLAY = dict(batch=2, seq=64)              # (c) 1 layer, 6 = 3 + 3 steps
 TRAIN_MTP = dict(steps=5, batch=4, seq=512)       # (d) deepseek-v3 3 dense + MTP
-TRAIN_CPU = dict(steps=3, batch=2, seq=64)        # (a) 2 layers, f32
+TRAIN_CPU = dict(steps=2, batch=2, seq=64)        # (a) 2 layers, f32
 
 
 def llama_cut(n_layers: int):
@@ -3733,7 +3756,7 @@ def profiled(fn):
 
 def train_card_vs_cpu() -> float:
     """(a) llama3.2-1b at its width, 2 layers, f32 (TF32 off): one seeded
-    init on the CPU moved to the card; 3 train steps of B=2, S=64
+    init on the CPU moved to the card; 2 train steps of B=2, S=64
     (naive, AdamW at lr 1e-3 after one warmup step) on both from the same
     batches.  Returns the largest relative difference of loss, nll and
     grad_norm over the steps; raises past TRAIN_TOL."""
@@ -4173,6 +4196,243 @@ def phase_launch(train: dict, prefill_ms: float) -> dict:
     return {"launches": launches, "rows": rows}
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the examples as entry points of the port
+# ---------------------------------------------------------------------------
+
+SERVICE_RUNS = (   # service_demo's argv, each run on cuda and on faithful
+    [], ["--supersteps-per-dispatch", "8"],
+    ["--client", "--policy", "round-robin"],
+    ["--client", "--policy", "weighted-queue-depth"],
+    ["--client", "--policy", "deadline-aware"],
+    ["--client", "--overlap", "--expansion", "pool", "--gangs", "2"],
+    ["--client", "--shards", "2"],
+    ["--frontend"])
+GOMOKU_ARGV = ["--games", "2", "--p", "8"]
+GOMOKU_LOSS_TOL = 1e-5   # (c) the card's value loss against the CPU's (f32)
+DECODE_TOKENS = 6
+TRAIN_LM = dict(cut=20, steps=40, batch=4, seq=256)   # (e) CFG_100M
+
+
+def launch_counts() -> dict:
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import uct_backup, uct_select
+
+    return {"flash_attention": FA.launches, "uct_select": uct_select.launches,
+            "uct_backup": uct_backup.launches}
+
+
+def zero_counts() -> None:
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import uct_backup, uct_select
+
+    FA.launches = uct_select.launches = uct_backup.launches = 0
+
+
+def quietly(fn, *args, **kw) -> tuple:
+    """(fn's result, the lines it printed, its seconds)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    return out, buf.getvalue().splitlines(), time.perf_counter() - t0
+
+
+def counted(fn, *args, **kw) -> tuple:
+    """quietly(fn) as a main-path run: every kernel count set to 0 just
+    before it and read just after.  (result, lines, seconds, launches)"""
+    zero_counts()
+    out, lines, secs = quietly(fn, *args, **kw)
+    return out, lines, secs, launch_counts()
+
+
+def add_launches(total: dict, launches: dict) -> None:
+    for k, n in launches.items():
+        total[k] = total.get(k, 0) + n
+
+
+def example_quickstart() -> dict:
+    """(a) quickstart on the card (the cuda executor) against --device cpu
+    (faithful): the five steps' actions, rewards and superstep counts
+    identical; each tree kernel once a superstep."""
+    from repro_torch.examples import quickstart
+
+    card, lines, secs, launches = counted(quickstart.main, ["--device", DEV])
+    cpu, _, cpu_secs = quietly(quickstart.main, ["--device", "cpu"])
+    if card != cpu:
+        raise AssertionError(f"quickstart: card {card} != cpu {cpu}")
+    n = card[-1][2]
+    if launches["uct_select"] != n or launches["uct_backup"] != n:
+        raise AssertionError(f"quickstart: {launches} in {n} supersteps")
+    return {"seconds": secs, "cpu_seconds": cpu_secs, "supersteps": n,
+            "ms_per_superstep": 1e3 * secs / n, "steps": card,
+            "lines": lines, "launches": launches}
+
+
+def example_service() -> dict:
+    """(b) service_demo on cuda against faithful on the card: every req
+    line identical (actions, statuses, supersteps, rewards) in every run;
+    one traced run whose trace parses as Chrome-trace JSON."""
+    import tempfile
+
+    from repro_torch.examples import service_demo
+
+    launches, runs = {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        traced = ["--client", "--trace-out", f"{tmp}/trace.json", "--metrics"]
+        for argv in SERVICE_RUNS + (traced,):
+            on = argv + ["--device", DEV, "--executor"]
+            _, lines, secs, n = counted(service_demo.main, on + ["cuda"])
+            _, plain, plain_secs = quietly(service_demo.main,
+                                           on + ["faithful"])
+            reqs = [ln for ln in lines if ln.startswith("req ")]
+            if not reqs or reqs != [ln for ln in plain
+                                    if ln.startswith("req ")]:
+                raise AssertionError(f"service_demo {argv}: cuda and "
+                                     f"faithful differ:\n{lines}\n{plain}")
+            add_launches(launches, n)
+            runs.append({"argv": " ".join(argv[:3]), "seconds": secs,
+                         "faithful_seconds": plain_secs, "reqs": len(reqs),
+                         "launches": n})
+        with open(f"{tmp}/trace.json") as f:
+            trace = json.load(f)
+        events = trace["traceEvents"]
+        if not events or not all("ph" in e and "name" in e for e in events):
+            raise AssertionError("service_demo: the trace is not Chrome-trace")
+    return {"runs": runs, "trace_events": len(events), "launches": launches,
+            "seconds": sum(r["seconds"] for r in runs)}
+
+
+def example_gomoku() -> dict:
+    """(c) gomoku_selfplay --games 2 --p 8 on the card against the port's
+    reference executor over the same backend: every game's states (its
+    moves) identical; each round's value loss on the card against the
+    same training on the CPU from the same weights and states."""
+    from repro_torch.envs.policy_net import init_params
+    from repro_torch.examples import gomoku_selfplay as G
+
+    argv = GOMOKU_ARGV + ["--device", DEV]
+    card, lines, secs, launches = counted(G.main, argv)
+    ref, _, ref_secs = quietly(
+        G.run, G.parse_args(argv),
+        init_params(torch.Generator().manual_seed(0)), executor="reference")
+    buf_s, buf_z, losses = [], [], []
+    for r, (a, b) in enumerate(zip(card, ref, strict=True)):
+        if not np.array_equal(a["states"], b["states"]):
+            raise AssertionError(f"gomoku round {r}: the card's moves "
+                                 "differ from the reference executor's")
+        buf_s += list(a["states"])
+        buf_z += a["z"]
+        _, cpu_loss = G.train_net(a["params"], buf_s, buf_z, device="cpu")
+        losses.append({"card": a["loss"], "cpu": cpu_loss,
+                       "diff": abs(a["loss"] - cpu_loss)})
+        if losses[-1]["diff"] > GOMOKU_LOSS_TOL:
+            raise AssertionError(f"gomoku round {r}: value loss {losses[-1]}")
+    return {"seconds": secs, "reference_seconds": ref_secs, "lines": lines,
+            "moves": [len(a["states"]) for a in card], "value_loss": losses,
+            "launches": launches}
+
+
+def example_decode() -> dict:
+    """(d) lm_mcts_decode --tokens 6 on the card against the reference
+    executor over the same LM (the same seeded weights on the card): the
+    decoded sequence identical."""
+    from repro_torch import configs
+    from repro_torch.examples import lm_mcts_decode as D
+    from repro_torch.models import lm
+
+    argv = ["--tokens", str(DECODE_TOKENS), "--device", DEV]
+    seq, lines, secs, launches = counted(D.main, argv)
+    args = D.parse_args(argv)
+    cfg = configs.get_config(args.arch, smoke=True)
+    params = lm.init_params(
+        cfg, torch.Generator(device=DEV).manual_seed(0), DEV)
+    ref, _, ref_secs = quietly(D.decode, cfg, params, args.tokens, args.p,
+                               args.pool_size, DEV, executor="reference")
+    if seq != ref or len(seq) != DECODE_TOKENS + 1:
+        raise AssertionError(f"lm_mcts_decode: {seq} != reference {ref}")
+    return {"seconds": secs, "reference_seconds": ref_secs, "decoded": seq,
+            "lines": lines, "launches": launches}
+
+
+def example_train() -> dict:
+    """(e) train_lm at CFG_100M, 4 x 256: a run stopped at the end of the
+    warmup (20 steps) and resumed to 40 against an uninterrupted 40-step
+    run, every loss identical; ms a step (median after the first of the
+    uninterrupted run), tokens/s and peak GiB.  The stop is at the
+    warmup's end: the schedule's cosine spans --steps, so a run saved
+    under a --steps inside the cosine (say 30 of 40) continues on another
+    schedule than the uninterrupted run, as the JAX original's does."""
+    import tempfile
+
+    from repro_torch.examples import train_lm
+
+    c = TRAIN_LM
+    flags = ["--batch", str(c["batch"]), "--seq", str(c["seq"]),
+             "--device", DEV]
+    release()
+    with tempfile.TemporaryDirectory() as tmp:
+        zero_counts()
+        first, _, _ = quietly(train_lm.main, ["--steps", str(c["cut"]),
+                                              "--ckpt", f"{tmp}/a"] + flags)
+        rest, lines, _ = quietly(train_lm.main, ["--steps", str(c["steps"]),
+                                                 "--ckpt", f"{tmp}/a"] + flags)
+        if f"[100m] resumed at {c['cut']}" not in lines:
+            raise AssertionError(f"train_lm did not resume: {lines}")
+        torch.cuda.reset_peak_memory_stats()
+        with TimedSteps() as ts:
+            whole, _, secs = quietly(train_lm.main, [
+                "--steps", str(c["steps"]), "--ckpt", f"{tmp}/b"] + flags)
+        launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if {**first, **rest} != whole:
+        diff = max(abs({**first, **rest}[i] - whole[i]) for i in whole)
+        raise AssertionError(f"train_lm: the resumed losses differ from the "
+                             f"uninterrupted run's by up to {diff}")
+    if not all(np.isfinite(v) for v in whole.values()):
+        raise AssertionError(f"train_lm: a loss is not finite: {whole}")
+    ms = float(np.median(ts.ms[1:]))
+    return {"seconds": secs, "ms_per_step": ms,
+            "tokens_per_s": c["batch"] * c["seq"] / (ms / 1e3),
+            "peak_gib": peak, "first_loss": whole[0],
+            "last_loss": whole[c["steps"] - 1], "resumed_identical": True,
+            "launches": launches}
+
+
+def phase_examples() -> dict:
+    """Phase 18: the five examples as entry points of the port, each run
+    in this process through its main(argv) with its output captured.
+    Returns each twin's launches of each kernel."""
+    t_phase = time.perf_counter()
+    out = {}
+    for name, fn in (("quickstart", example_quickstart),
+                     ("service_demo", example_service),
+                     ("gomoku_selfplay", example_gomoku),
+                     ("lm_mcts_decode", example_decode),
+                     ("train_lm", example_train)):
+        out[name] = fn()
+        emit(phase=f"example_{name}", **out[name])
+    if any(out["train_lm"]["launches"].values()):
+        raise AssertionError("train_lm launched a kernel: it trains "
+                             "blockwise, and the flash kernel has no backward")
+    for name in ("quickstart", "service_demo", "gomoku_selfplay",
+                 "lm_mcts_decode"):
+        if not (out[name]["launches"]["uct_select"]
+                and out[name]["launches"]["uct_backup"]):
+            raise AssertionError(f"{name} launched no tree kernel")
+    if not out["lm_mcts_decode"]["launches"]["flash_attention"]:
+        raise AssertionError("lm_mcts_decode launched no flash kernel")
+    launches = {k: v["launches"] for k, v in out.items()}
+    emit(phase="examples", seconds=time.perf_counter() - t_phase,
+         launches=launches)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -4246,9 +4506,13 @@ def main() -> int:
     train_launches, train_full = phase_train()
     progress(17)
     launch = phase_launch(train_full, serve_prefill_ms)
+    progress(18)
+    examples = phase_examples()
     for row in kernels:
         row["launches_training"] = train_launches[row["name"]]
         row["launches_launch"] = launch["launches"][row["name"]]
+        row["launches_examples"] = {k: v[row["name"]]
+                                    for k, v in examples.items()}
     kernels[2]["reports_launch_prefill"] = \
         launch["rows"]["serve_prefill"]["kernel_reports"]
     for row in kernels[:2]:

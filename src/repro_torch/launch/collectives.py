@@ -23,6 +23,7 @@ from __future__ import annotations
 from collections import defaultdict
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 
 KINDS = ("all_reduce", "all_gather", "reduce_scatter", "all_to_all",
@@ -68,22 +69,62 @@ def kind_of(func) -> tuple:
     return None, False
 
 
+def group_ranks(func, args, kwargs) -> tuple:
+    """The global ranks of the group a collective runs over (its
+    ``group_name`` or ``process_group`` argument), or () where none can be
+    read."""
+    import torch.distributed as dist
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
+    names = [a.name for a in func._schema.arguments]
+    for key in ("group_name", "process_group"):
+        if key not in names:
+            continue
+        i = names.index(key)
+        g = kwargs.get(key, args[i] if i < len(args) else None)
+        try:
+            if isinstance(g, str):
+                g = _resolve_process_group(g)
+            return tuple(dist.get_process_group_ranks(g))
+        except (RuntimeError, ValueError, TypeError, AttributeError):
+            return ()
+    return ()
+
+
 class record(TorchDispatchMode):
     """Sums the result bytes of the collectives dispatched inside the
-    block, by kind: ``bytes`` {kind: bytes, "total": bytes} and ``ops``
-    {kind: count}."""
+    block, by kind: ``bytes`` {kind: bytes, "total": bytes}, ``ops``
+    {kind: count}, ``by_group`` {the group's global ranks: bytes} and
+    ``calls`` [(kind, result shape, bytes)] in the order they ran.
+    Collectives that DTensor issues for a redistribution are seen too."""
 
     def __init__(self):
         super().__init__()
         self._bytes = defaultdict(int)
         self.ops = defaultdict(int)
+        self.by_group = defaultdict(int)
+        self.last_op = None          # the op dispatched last (errors name it)
+        self.calls = []              # (kind, result shape, bytes) in order
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if isinstance(func, torch._ops.HigherOrderOperator):
+            return func(*args, **(kwargs or {}))
+        self.last_op = func
+        if any(issubclass(t, DTensor) for t in types):
+            # a mode runs before a tensor subclass: hand the op to DTensor,
+            # whose sharding propagation desugars it into local ops and
+            # the collectives its placements need, which come back here
+            return NotImplemented
         out = func(*args, **(kwargs or {}))
         kind, in_place = kind_of(func)
         if kind is not None:
-            self._bytes[kind] += tensor_bytes(args[0] if in_place else out)
+            res = args[0] if in_place else out
+            n = tensor_bytes(res)
+            self._bytes[kind] += n
             self.ops[kind] += 1
+            self.by_group[group_ranks(func, args, kwargs or {})] += n
+            shape = tuple(res.shape) if isinstance(res, torch.Tensor) else None
+            self.calls.append((kind, shape, n))
         return out
 
     @property

@@ -21,12 +21,30 @@ For each (arch x shape x mesh) cell:
     counts do not depend on the mesh and are made once a cell pair;
   * one JSON record a cell under artifacts/dryrun_torch/.
 
-The JAX dry run lowers and compiles each cell for 512 host devices and
-reads XLA's memory and cost analyses and the post-SPMD HLO.  The port has
-no SPMD partitioner: the step is not run sharded, so there is no
-per-device program to read and no collective to count.  ``collectives``
-and ``collective_s`` are null in every record, with the reason, and
-``dominant`` is taken over the two terms there are.
+The collective term: the step is counted a second time under a fake
+process group of the mesh's size (``torch.distributed``'s "fake" backend
+with a ``FakeStore``: rank 0's view, no data moves), on a DeviceMesh with
+the production mesh's axis names (the multi-pod mesh as (pod x data,
+model): ``counting_mesh``).  The parameters (for train also the
+optimizer state), the batch and the caches are DTensors on meta, placed
+by the specs (``models.sharding.make_param_shardings``,
+``specs.opt_state_shardings``, ``batch_spec_shardings``,
+``cache_shardings``); activations are constrained where the model calls
+``sharding.constrain``, and the MoE shard-map path issues its own
+collectives.  ``launch.collectives.record()`` sums the result bytes of
+every collective DTensor's sharding propagation (or the model) issues:
+``collectives`` (per-device bytes by kind, as the JAX record's field),
+``collective_ops`` (counts) and ``collectives_scaled`` (the same: the
+port's step has no loops whose body a trip count would multiply).  This
+pass runs attention "naive" (one product a layer; blockwise dispatches
+each key block through DTensor, and the flash wrapper takes no
+DTensor): the attention's collectives follow q, k and v's placements,
+not the route.  ``collective_s`` is each collective's bytes over its
+group's link (``link_of``: NVLink inside one HGX node, else the node
+network), summed; ``collective_links`` holds the bytes by link.  Where
+DTensor has no sharding rule for an op of the step, the cell keeps
+``collectives = None`` and ``collective_reason`` names the op.
+``dominant`` is taken over the three terms.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all \\
@@ -37,25 +55,31 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import pathlib
+import re
 import time
 import traceback
 
 import torch
 
 from repro_torch import configs
-from repro_torch.launch import roofline, serve, specs, train
-from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch import collectives, roofline, serve, specs, train
+from repro_torch.launch.mesh import MeshShape, make_production_mesh
 from repro_torch.models import lm, sharding as sh, steps
 from repro_torch.models.config import active_param_count, param_count
+from repro_torch.pytree import tree_map
 
 # NVIDIA H100 SXM data sheet: 80 GB of HBM3 a card, NVLink 4 at 900 GB/s a
 # card in all, 450 GB/s each way; the peaks are roofline.py's.
 HBM_PER_CHIP = 80e9
 NVLINK_BW = 450e9
-NO_COLLECTIVES = ("no SPMD partitioner in the port: the step is not run "
-                  "sharded")
+# NVIDIA DGX H100 / HGX H100: 8 cards a node on NVLink, and the node
+# network one ConnectX-7 400 Gb/s (NDR InfiniBand) port a card: 50 GB/s
+NODE_CARDS = 8
+NETWORK_BW = 50e9
+LINK_BW = {"nvlink": NVLINK_BW, "network": NETWORK_BW}
 
 
 def step_impl(cfg, shape) -> str:
@@ -65,9 +89,19 @@ def step_impl(cfg, shape) -> str:
     return serve.prefill_impl(cfg)
 
 
+def link_of(ranks) -> str:
+    """"nvlink" for a group whose ranks all lie in one node (ranks
+    NODE_CARDS * n to NODE_CARDS * n + 7, the consecutive placement), else
+    "network"."""
+    return ("nvlink" if min(ranks) // NODE_CARDS == max(ranks) // NODE_CARDS
+            else "network")
+
+
 def lower_cell(cfg, shape, mesh, impl=None, optimized=False):
     """(step, args, meta) of one cell: the step function, its inputs as
-    meta tensors and the per-device state bytes on `mesh`."""
+    meta tensors and the per-device state bytes on `mesh`.
+    ``meta["_shardings"]`` holds each input's MeshSharding tree (None for
+    a replicated scalar), parallel to args."""
     cfg = specs.config_for(cfg, shape, optimized)
     impl = impl or step_impl(cfg, shape)
     rules = specs.rules_for(cfg, shape, optimized)
@@ -77,6 +111,7 @@ def lower_cell(cfg, shape, mesh, impl=None, optimized=False):
     meta = {"params_bytes_device": specs.sharded_bytes_per_device(
         pshapes, pshard, mesh)}
     extras = {k: tok[k] for k in ("patches", "frames") if k in tok}
+    tshard = specs.batch_spec_shardings(mesh, rules, cfg, shape, tok)
 
     if shape.kind == "train":
         opt_name, (opt_init, opt_update) = specs.optimizer_for(cfg)
@@ -87,6 +122,7 @@ def lower_cell(cfg, shape, mesh, impl=None, optimized=False):
             oshapes, oshard, mesh)
         meta["optimizer"] = opt_name
         step = steps.make_train_step(cfg, opt_update, impl=impl)
+        meta["_shardings"] = (pshard, oshard, None, tshard)
         return step, (pshapes, oshapes, 0, tok), meta
 
     cshapes = specs.cache_shapes(cfg, shape.global_batch, shape.seq_len)
@@ -96,23 +132,150 @@ def lower_cell(cfg, shape, mesh, impl=None, optimized=False):
     if shape.kind == "prefill":
         prefill = steps.make_prefill_step(cfg, impl=impl)
 
-        def step(params, tokens, caches):
+        def step(params, tokens, caches, extras):
             return prefill(params, tokens, caches, **extras)
-        return step, (pshapes, tok["tokens"], cshapes), meta
+        ex = {k: tshard[k] for k in extras}
+        meta["_shardings"] = (pshard, tshard["tokens"], cshard, ex)
+        return step, (pshapes, tok["tokens"], cshapes, extras), meta
 
     decode = steps.make_decode_step(cfg, impl=impl)
     pos = torch.zeros((), dtype=torch.int32, device="meta")
+    meta["_shardings"] = (pshard, cshard, tshard["tokens"], None)
     return decode, (pshapes, cshapes, tok["tokens"], pos), meta
+
+
+def _local_shape(shape, spec, sizes) -> tuple:
+    out = list(shape)
+    for d, entry in enumerate(spec):
+        for n in sh.spec_names(entry):
+            out[d] //= sizes[n]
+    return tuple(out)
+
+
+def placed(tree, shardings, dmesh):
+    """The meta tensors of `tree` as DTensors on `dmesh`, each holding its
+    local block under its MeshSharding (None leaves `tree` as it is)."""
+    from torch.distributed.tensor import DTensor
+
+    if shardings is None:
+        return tree
+    sizes = sh.mesh_sizes(dmesh)
+
+    def one(s, t):
+        local = torch.empty(_local_shape(t.shape, s.spec, sizes),
+                            dtype=t.dtype, device="meta")
+        return DTensor.from_local(
+            local, dmesh, sh.placements_for(dmesh, s.spec), run_check=False,
+            shape=t.shape, stride=t.stride())
+    return tree_map(one, shardings, tree,
+                    is_leaf=lambda x: isinstance(x, sh.MeshSharding))
+
+
+@contextlib.contextmanager
+def fake_world(mesh):
+    """A fake process group of ``mesh.size`` ranks (rank 0's view, no data
+    moves) and a DeviceMesh over it with `mesh`'s axis names and sizes,
+    destroyed on exit."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("a fake world needs the default process group: "
+                           "one is already running")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=mesh.size)
+    try:
+        yield init_device_mesh("cpu", tuple(mesh.sizes),
+                               mesh_dim_names=tuple(mesh.axis_names))
+    finally:
+        dist.destroy_process_group()
+
+
+def unsharded_op(err: BaseException, last_op) -> str:
+    """The op an error of DTensor's dispatch names (``aten.x.y``), else the
+    op dispatched last, with the error."""
+    m = re.search(r"(aten\.[\w.]+|c10d\w*\.[\w.]+)", str(err))
+    if m:
+        return m.group(1)
+    return f"{last_op}: {err!r}"[:300]
+
+
+def counting_mesh(mesh):
+    """The mesh the collectives are counted on: `mesh`, with "pod" and
+    "data" merged into one "data" axis (pod-major, so the ranks are the
+    same).  The rules take pod and data together for the batch and the
+    sequence, so those placements do not change; FSDP (``Rules.fsdp``,
+    "data" alone) then shards pod x data ways where the production mesh
+    shards data ways and replicates over the pods.  DTensor's sharding
+    propagation searches its redistribution graph for every candidate of
+    an op on a 3-D mesh, which takes it minutes an op."""
+    if "pod" not in mesh.axis_names:
+        return mesh
+    sizes = mesh.shape
+    return MeshShape(("data", "model"),
+                     (sizes["pod"] * sizes["data"], sizes["model"]))
+
+
+def count_collectives(cfg, shape, mesh, optimized=False) -> dict:
+    """The cell's collectives, counted on a fake process group of
+    ``mesh.size`` ranks (rank 0's view) over a DeviceMesh with `mesh`'s
+    axis names and sizes: the step (attention "naive") run once on meta
+    DTensors placed by the specs.  Returns the record's collective fields;
+    ``collectives`` is None, and ``collective_reason`` names the op,
+    where DTensor cannot shard the step."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    mesh = counting_mesh(mesh)
+    rec = collectives.record()
+    if mesh.size == 1:
+        # one rank exchanges nothing; no fake world starts, so a cell on a
+        # 1x1 mesh is also counted beside a running world (on a card)
+        return collective_term(rec, mesh)
+    step, args, meta = lower_cell(cfg, shape, mesh, impl="naive",
+                                  optimized=optimized)
+    rules = specs.rules_for(specs.config_for(cfg, shape, optimized), shape,
+                            optimized)
+    with fake_world(mesh) as dmesh:
+        try:
+            args = [placed(a, s, dmesh)
+                    for a, s in zip(args, meta["_shardings"])]
+            sh.set_context(dmesh, rules)
+            with implicit_replication(), rec:
+                step(*args)
+        except Exception as e:        # DTensor has no rule for an op
+            return {"collectives": None, "collective_ops": None,
+                    "collectives_scaled": None, "collective_links": None,
+                    "collective_s": None,
+                    "collective_reason": unsharded_op(e, rec.last_op)}
+        finally:
+            sh.set_context(None)
+    return collective_term(rec, mesh)
+
+
+def collective_term(rec, mesh) -> dict:
+    """The record's collective fields from a recorder's counts on
+    `mesh`."""
+    links = {k: 0 for k in LINK_BW}
+    for ranks, b in rec.by_group.items():
+        # a collective with no group the recorder could read spans the world
+        links[link_of(ranks or range(mesh.size))] += b
+    return {"collectives": rec.bytes, "collective_ops": dict(rec.ops),
+            "collectives_scaled": rec.bytes, "collective_links": links,
+            "collective_s": sum(b / LINK_BW[k] for k, b in links.items()),
+            "collective_bw": LINK_BW, "collective_reason": None,
+            "collective_mesh": "x".join(map(str, mesh.sizes))}
 
 
 _COSTS: dict = {}      # (arch, shape, optimized) -> (costs, seconds)
 
 
-def analyze(step, args, meta, cfg, shape, mesh, key) -> dict:
+def analyze(step, args, meta, cfg, shape, mesh, key, optimized=False) -> dict:
     """The cell's record from its step's op counts (made once per `key`:
-    they do not depend on the mesh) and its state bytes."""
+    they do not depend on the mesh), its state bytes and its collectives
+    on `mesh`."""
     chips = mesh.size
-    rec = dict(meta)
+    rec = {k: v for k, v in meta.items() if not k.startswith("_")}
     rec["mesh"] = "x".join(str(mesh.shape[a]) for a in mesh.axis_names)
     rec["chips"] = chips
     if key not in _COSTS:
@@ -145,10 +308,12 @@ def analyze(step, args, meta, cfg, shape, mesh, key) -> dict:
     rec["tf32"] = False
     rec["compute_s"] = bound["compute_s"] / chips
     rec["memory_s"] = max(costs["bytes"] / chips, state) / roofline.HBM_BW
-    rec["collectives"] = None
-    rec["collective_s"] = None
-    rec["collective_reason"] = NO_COLLECTIVES
-    rec["dominant"] = max(("compute_s", "memory_s"), key=lambda k: rec[k])
+    t0 = time.time()
+    rec.update(count_collectives(cfg, shape, mesh, optimized))
+    rec["collective_count_s"] = time.time() - t0
+    terms = ("compute_s", "memory_s") + (
+        ("collective_s",) if rec["collective_s"] is not None else ())
+    rec["dominant"] = max(terms, key=lambda k: rec[k])
     rec["useful_flops_ratio"] = (rec["model_flops"] / rec["flops_global"]
                                  if rec["flops_global"] else 0.0)
     return rec
@@ -182,11 +347,15 @@ def run_cell(arch, shape_name, multi_pod, smoke=False,
         t1 = time.time()
         rec["impl"] = step_impl(cfg, shape)
         rec.update(analyze(step, args, meta, cfg, shape, mesh,
-                           key=(cfg.name, shape, optimized)))
+                           key=(cfg.name, shape, optimized),
+                           optimized=optimized))
         rec["status"] = "ok"
         rec["specs_s"] = t1 - t0
+        coll = ("n/a: " + rec["collective_reason"] if rec["collectives"] is None
+                else f"{rec['collectives']['total'] / 1e9:.3f} GB")
         print(f"[dryrun] {tag}: OK count={rec['count_s']:.1f}s "
               f"dom={rec['dominant']} flops={rec['flops_global']:.3e} "
+              f"collectives/device={coll} "
               f"state/device={rec['state_bytes_device'] / 1e9:.2f} GB",
               flush=True)
     except Exception as e:

@@ -61,6 +61,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.models import layers as L
@@ -129,6 +130,12 @@ def _gqa_scores(q, k):
     repeating k."""
     B, Sq, H, dh = q.shape
     Hkv = k.shape[2]
+    if isinstance(q, DTensor) and H != Hkv:
+        # the dry run's collective count (launch/dryrun.py): DTensor cannot
+        # split a head dim sharded over more ranks than there are kv heads
+        # into (Hkv, H // Hkv), so each query head takes its kv head's copy
+        return torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                            k.float().repeat_interleave(H // Hkv, dim=2))
     qg = q.float().reshape(B, Sq, Hkv, H // Hkv, dh)
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float())
     return s.reshape(B, H, Sq, k.shape[1])
@@ -138,6 +145,10 @@ def _gqa_out(p_attn, v):
     """p: [B,H,Sq,Sk], v: [B,Sk,Hkv,dh] -> f32 [B,Sq,H,dh]."""
     B, H, Sq, Sk = p_attn.shape
     Hkv = v.shape[2]
+    if isinstance(p_attn, DTensor) and H != Hkv:     # as in _gqa_scores
+        return torch.einsum("bhqk,bkhd->bqhd", p_attn.float(),
+                            v.to(p_attn.dtype).float().repeat_interleave(
+                                H // Hkv, dim=2))
     pg = p_attn.reshape(B, Hkv, H // Hkv, Sq, Sk)
     o = torch.einsum("bhgqk,bkhd->bqhgd", pg.float(),
                      v.to(p_attn.dtype).float())

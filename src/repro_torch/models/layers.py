@@ -145,8 +145,10 @@ def embed_axes(cfg) -> dict:
 
 def embed(cfg, p, tokens):
     # rows first, then the cast: the same values as the JAX package's
-    # take(tok.astype(dt)), without casting the whole table per call
-    x = p["tok"][tokens.long()].to(dt(cfg))
+    # take(tok.astype(dt)), without casting the whole table per call.  A
+    # lookup (not an index) so that DTensor shards it and its backward by
+    # the tokens' placement (the dry run's collective count)
+    x = torch.nn.functional.embedding(tokens.long(), p["tok"]).to(dt(cfg))
     if cfg.embed_scale:
         # sqrt(d) rounded to the dtype first, as the JAX package does; a
         # Python scalar, so no host-to-device copy

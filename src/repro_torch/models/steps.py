@@ -21,6 +21,7 @@ row, without a ``[B, S, V]`` f32 tensor (16.8 GB at the serve shape).
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models import layers as L
 from repro_torch.models import lm
@@ -68,9 +69,12 @@ def loss_fn(cfg: ModelConfig, params, batch, impl="blockwise"):
 
 
 def _xent(logits, labels, mask):
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    nll = lse - gold
+    # the difference is taken before the last dim is dropped: on a
+    # vocab-sharded DTensor (the dry run's collective count) the gathered
+    # logit is a masked partial whose mask keeps the gather's shape
+    lse = torch.logsumexp(logits, dim=-1, keepdim=True)
+    gold = torch.gather(logits, -1, labels[..., None].long())
+    nll = (lse - gold)[..., 0]
     if mask is not None:
         return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
     return torch.mean(nll)
@@ -86,11 +90,21 @@ def _value_and_grad(cfg, params, batch, impl):
         loss, metrics = loss_fn(cfg, tree_unflatten(tree_structure(params),
                                                     live), batch, impl)
         grads = torch.autograd.grad(loss, live, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g
+    grads = [torch.zeros_like(p) if g is None else _synced(g, p)
              for p, g in zip(leaves, grads)]
     metrics = {k: v.detach() for k, v in metrics.items()}
     return (loss.detach(), metrics), tree_unflatten(tree_structure(params),
                                                     grads)
+
+
+def _synced(g, p):
+    """A DTensor gradient (the dry run's collective count) in its
+    parameter's placements: the sum over the data shards is issued once
+    here, as a partitioner issues it, and not again at each later use of
+    a partial gradient.  A plain tensor is returned as it is."""
+    if isinstance(g, DTensor) and g.placements != p.placements:
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def make_train_step(cfg: ModelConfig, opt_update, *, microbatches: int = 1,

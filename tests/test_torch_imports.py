@@ -70,6 +70,11 @@ def test_import_loads_no_jax_module():
         "import repro_torch.launch.distributed_init\n"
         "import repro_torch.launch.roofline\n"
         "import repro_torch.pytree\n"
+        "import repro_torch.examples.quickstart\n"
+        "import repro_torch.examples.service_demo\n"
+        "import repro_torch.examples.gomoku_selfplay\n"
+        "import repro_torch.examples.lm_mcts_decode\n"
+        "import repro_torch.examples.train_lm\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n")

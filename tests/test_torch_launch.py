@@ -8,6 +8,7 @@ dry run, and the range-analysis helpers of core/."""
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -555,8 +556,10 @@ def test_dryrun_smoke_steps_on_meta(arch, tmp_path):
         assert rec["status"] == "ok", rec.get("traceback")
         assert rec["flops_global"] > 0 and rec["bytes_global"] > 0
         assert rec["state_bytes_device"] > 0 and rec["fits_hbm_state"]
-        assert rec["collectives"] is None and rec["collective_s"] is None
-        assert rec["dominant"] in ("compute_s", "memory_s")
+        # one rank exchanges nothing
+        assert rec["collectives"]["total"] == 0 and rec["collective_s"] == 0
+        assert rec["collective_reason"] is None
+        assert rec["dominant"] in ("compute_s", "memory_s", "collective_s")
         cfg = configs.get_config(arch, smoke=True)
         if kind == "prefill" and rec["impl"] == "flash":   # its reports
             attn = any(s.kind == "attn" for s in cfg.layer_specs())
@@ -574,11 +577,159 @@ def test_dryrun_cli_writes_records(tmp_path):
     assert rc == 0
     recs = [json.loads(p.read_text()) for p in sorted(tmp_path.glob("*.json"))]
     assert [r["mesh"] for r in recs] == ["16x16", "2x16x16"]
-    assert all(r["status"] == "ok" and r["collective_reason"] ==
-               dryrun.NO_COLLECTIVES for r in recs)
+    # a decode step writes its cache at one position, which DTensor
+    # cannot do on a cache sharded over its length
+    assert all(r["status"] == "ok" and r["collectives"] is None and
+               r["collective_reason"] == "aten.index_put_.default"
+               for r in recs)
     rec = dryrun.run_cell("llama3.2-1b", "long_500k", False, smoke=True,
                           out_dir=tmp_path)
     assert rec["status"] == "skipped"
+
+
+# ----------------------------------------- the dry run's collective term
+
+A11B_TRAIN = configs.ShapeSpec("train_tiny", 32, 8, "train")   # B=8, S=32
+
+
+def llama_leaf_bytes(cfg) -> int:
+    return sum(t.numel() * t.element_size()
+               for t in tree_leaves(lm.param_shapes(cfg)))
+
+
+def test_dryrun_data_parallel_collectives_hand_count():
+    """SMOKE llama's train step on (data=4, model=1): every parameter is
+    replicated (model=1, no FSDP) and the batch split 4 ways, so each
+    gradient is a sum over the data shards, all-reduced once at its
+    parameter's bytes, and the loss mask's token count (the masked mean's
+    f32 denominator) is all-reduced once; nothing else moves."""
+    cfg = configs.get_config("llama3.2-1b", smoke=True)
+    rec = dryrun.count_collectives(cfg, A11B_TRAIN,
+                                   MeshShape(("data", "model"), (4, 1)))
+    assert rec["collective_reason"] is None
+    n_leaves = len(tree_leaves(lm.param_shapes(cfg)))
+    want = llama_leaf_bytes(cfg) + 4
+    assert rec["collectives"] == {
+        "all_reduce": want, "all_gather": 0, "reduce_scatter": 0,
+        "all_to_all": 0, "broadcast": 0, "total": want}
+    assert rec["collective_ops"] == {"all_reduce": n_leaves + 1}
+    # the 4 ranks lie in one node: NVLink
+    assert rec["collective_links"] == {"nvlink": want, "network": 0}
+    assert rec["collective_s"] == want / dryrun.NVLINK_BW
+
+
+def model_parallel_forward(cfg, B=8, S=32):
+    """lm.forward of SMOKE llama on a fake (data=1, model=2) world with
+    the parameters and tokens placed by the specs; the recorder."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    mesh = MeshShape(("data", "model"), (1, 2))
+    rules = sh.DEFAULT_RULES
+    pshapes = lm.param_shapes(cfg)
+    pshard = sh.make_param_shardings(mesh, rules, lm.param_axes(cfg), pshapes)
+    tok = torch.empty((B, S), dtype=torch.int32, device="meta")
+    tshard = specs.batch_spec_shardings(mesh, rules, cfg, A11B_TRAIN,
+                                        {"tokens": tok})["tokens"]
+    rec = collectives.record()
+    with dryrun.fake_world(mesh) as dmesh:
+        params = dryrun.placed(pshapes, pshard, dmesh)
+        tokens = dryrun.placed(tok, tshard, dmesh)
+        sh.set_context(dmesh, rules)
+        try:
+            with implicit_replication(), rec:
+                lm.forward(cfg, params, tokens, impl="naive")
+        finally:
+            sh.set_context(None)
+    return rec
+
+
+def test_dryrun_model_parallel_collectives_hand_count():
+    """SMOKE llama's forward on (data=1, model=2): the vocab-sharded
+    embedding lookup and, in each layer, the heads-sharded attention
+    output projection and the mlp-sharded down projection leave partial
+    sums that ``constrain`` all-reduces: 1 + 2L all-reduces of the
+    [B, S, d] f32 activations, and nothing else (the tied unembedding's
+    logits stay vocab-sharded).  The whole train step also counts."""
+    cfg = configs.get_config("llama3.2-1b", smoke=True)
+    L = cfg.n_layers
+    act = 8 * 32 * cfg.d_model * 4
+    rec = model_parallel_forward(cfg)
+    one = ("all_reduce", (8, 32, cfg.d_model), act)
+    assert rec.calls == [one] * (1 + 2 * L)
+    train = dryrun.count_collectives(cfg, A11B_TRAIN,
+                                     MeshShape(("data", "model"), (1, 2)))
+    assert train["collective_reason"] is None
+    assert train["collectives"]["all_reduce"] >= (1 + 2 * L) * act
+
+
+@pytest.fixture(scope="module")
+def jax_dryrun(tmp_path_factory):
+    """tests/dryrun_jax.py's record of the same cell on four forced host
+    devices (a subprocess: JAX fixes its device count when it starts)."""
+    out = tmp_path_factory.mktemp("dryrun_jax") / "out.json"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=4")
+    subprocess.run([sys.executable, str(ROOT / "tests/dryrun_jax.py"),
+                    str(out)], env=env, check=True, timeout=600,
+                   capture_output=True)
+    return json.loads(out.read_text())
+
+
+def test_dryrun_collectives_beside_jax(jax_dryrun):
+    """The JAX dry run's parsed bytes beside the port's count of the same
+    cell.  Equal only where both partitioners must place the same
+    collective: on (4, 1) both move gradients by all-reduce alone, and
+    both all-reduce the embedding table's gradient whole ([512, 64] f32;
+    XLA once for each use of the tied table, the port once for their
+    autograd sum); on (1, 2) both all-reduce the row-parallel projections'
+    [B, S, d] f32 partial sums.  The totals differ: XLA reduces the
+    stacked layers' gradients inside the layer loop (a layer's slice,
+    counted once) and its remat recomputes the forward's all-reduces."""
+    cfg = configs.get_config("llama3.2-1b", smoke=True)
+    dp = dryrun.count_collectives(cfg, A11B_TRAIN,
+                                  MeshShape(("data", "model"), (4, 1)))
+    j = jax_dryrun["4x1"]
+    assert set(j["collective_bytes"]) == {"all-reduce", "total"}
+    assert dp["collectives"]["total"] == dp["collectives"]["all_reduce"]
+    table = ["f32", [cfg.vocab, cfg.d_model]]
+    assert j["all_reduce_shapes"].count(table) == 2
+    assert dp["collectives"]["all_reduce"] == llama_leaf_bytes(cfg) + 4
+    print("(4, 1) all-reduce bytes a device: JAX", j["collective_bytes"],
+          "scaled", j["collectives_scaled"], "port", dp["collectives"])
+    mp = model_parallel_forward(cfg)
+    act = ["f32", [8, 32, cfg.d_model]]
+    assert act in jax_dryrun["1x2"]["all_reduce_shapes"]
+    assert {(k, s) for k, s, _ in mp.calls} == {("all_reduce",
+                                                 (8, 32, cfg.d_model))}
+
+
+def test_dryrun_every_smoke_arch_counts_or_names_the_op():
+    """Every SMOKE arch's prefill and decode cells on a (2, 2) fake world:
+    a collective count, or a reason naming the op DTensor cannot shard."""
+    mesh = MeshShape(("data", "model"), (2, 2))
+    for arch in configs.ARCH_IDS:
+        cfg = configs.get_config(arch, smoke=True)
+        for kind in ("prefill", "decode"):
+            rec = dryrun.count_collectives(
+                cfg, configs.ShapeSpec(f"{kind}_tiny", 64, 4, kind), mesh)
+            if rec["collectives"] is None:
+                assert re.match(r"(aten|c10d)", rec["collective_reason"]), (
+                    arch, kind, rec["collective_reason"])
+            else:
+                assert rec["collective_s"] >= 0.0
+                assert sum(rec["collective_links"].values()) == \
+                    rec["collectives"]["total"]
+
+
+def test_link_of_and_counting_mesh():
+    assert dryrun.link_of(range(8)) == "nvlink"
+    assert dryrun.link_of([0, 2, 4, 6]) == "nvlink"
+    assert dryrun.link_of(range(4, 12)) == "network"
+    assert dryrun.link_of(range(0, 256, 16)) == "network"
+    m = dryrun.counting_mesh(make_production_mesh(multi_pod=True))
+    assert (m.axis_names, m.sizes) == (("data", "model"), (32, 16))
+    one = make_production_mesh()
+    assert dryrun.counting_mesh(one) is one
 
 
 # ------------------------------------------------- core: range analysis
