@@ -117,7 +117,6 @@ class FusedDispatch:
     new_nodes: Optional[np.ndarray]  # [Ge, p, Fp] (escape=="expand")
     replays: int = 0            # superstep bodies run (graph replays on
                                 # the cuda executor on a card)
-    device_ms: Optional[float] = None  # CUDA events around the replays
 
     def written(self, r: int) -> tuple[int, np.ndarray]:
         """(lo, rows): the states the device resolved for row r, of
@@ -160,8 +159,6 @@ class PendingDispatch:
     runs: int            # superstep bodies queued
     out: torch.Tensor    # the packed read-back (pinned host on a card)
     done: Any            # CUDA event after the read-back copy (None on CPU)
-    t0: Any              # CUDA events around the bodies (None on CPU)
-    t1: Any
 
 
 class FusedProgram:
@@ -456,21 +453,14 @@ class FusedProgram:
             raise RuntimeError("a fused dispatch of this program is in "
                                "flight: collect it before the next submit")
         cuda = self.device.type == "cuda"
-        # events, replays and the read-back go on the current stream of
+        # replays, the read-back and its event go on the current stream of
         # the thread's current device: make it the arena's
         with torch.cuda.device(self.device) if cuda else nullcontext():
             runs = self.prepare(active, K, states, budget_left)
-            t0 = t1 = None
-            if cuda:
-                t0 = torch.cuda.Event(enable_timing=True)
-                t1 = torch.cuda.Event(enable_timing=True)
-                t0.record()
             self.run(runs)
-            if cuda:
-                t1.record()
             out, done = self._read_back(runs)
         self._in_flight = True
-        return PendingDispatch(self, runs, out, done, t0, t1)
+        return PendingDispatch(self, runs, out, done)
 
     def collect(self, pend: PendingDispatch) -> FusedDispatch:
         """The one blocking read of a dispatch."""
@@ -502,9 +492,7 @@ class FusedProgram:
             states_lo=states_lo, states=rows,
             sel_dev=self.sel.map(torch.clone) if expand else None,
             sel_host=sel_host if expand else None,
-            new_nodes=new_nodes if expand else None, replays=pend.runs,
-            device_ms=(pend.t0.elapsed_time(pend.t1)
-                       if pend.t0 is not None else None))
+            new_nodes=new_nodes if expand else None, replays=pend.runs)
 
 
 def submit_supersteps(cfg: TreeConfig, variant: str, trees: UCTree, active,

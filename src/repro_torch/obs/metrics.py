@@ -22,8 +22,7 @@ for per-superstep call sites.
 
 NULL_REGISTRY is the disabled path: the same surface returning shared
 no-op metric objects, `enabled` False, `render()` empty.  Layers default
-to it; the `service_obs_overhead` BENCH row pins the resulting
-disabled-path cost at well under the 2% CI gate.
+to it.
 """
 
 from __future__ import annotations

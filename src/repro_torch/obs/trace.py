@@ -1,8 +1,8 @@
 """Tracer — nested spans over a lock-free ring buffer, Chrome-trace out.
 
-The port's copy of repro.obs.trace (pure Python, unchanged but for this
-note and the fence named below: on a card the fence is
-``torch.cuda.synchronize``).
+The port's copy of repro.obs.trace (pure Python), with two changes: on a
+card the fence is ``torch.cuda.synchronize``, and the tracer keeps each
+span name's totals (below).
 
 The paper's 35x in-tree and 3x system numbers rest on Fig. 8-style phase
 breakdowns: knowing, per superstep, where the time went on each side of
@@ -28,6 +28,20 @@ actually use:
                 * track metadata   — track() names a timeline (scheduler,
                   one per arena pool) and returns its tid.
 
+  totals      every complete span that ends adds, under its name, its
+              duration, its self time (the duration less what its child
+              spans on the same track cover) and a count of one to three
+              counters, kept whether or not the ring drops events:
+
+                trace_span_seconds_total{span=<name>}
+                trace_span_self_seconds_total{span=<name>}
+                trace_spans_total{span=<name>}
+
+              ``bind_metrics(registry)`` moves them into a registry, so
+              they render with the rest (``SearchClient(trace=True,
+              metrics=True)`` binds its own: ``client.metrics()``).
+              Async spans and instants are not counted.
+
   export()    Chrome-trace / Perfetto JSON ({"traceEvents": [...]}):
               load the file at ui.perfetto.dev or chrome://tracing.
               Timestamps are microseconds relative to Tracer creation.
@@ -35,9 +49,35 @@ actually use:
   NULL_TRACER the disabled path: same surface, every method a no-op,
               `enabled` False so call sites can gate explicit
               device fences on tracing being live.  Layers
-              default to it, which is what keeps the disabled-path
-              overhead at a handful of no-op calls per superstep
-              (measured by the `service_obs_overhead` BENCH row).
+              default to it, which keeps the disabled-path overhead at
+              a handful of no-op calls per superstep.
+
+The spans of a serving pool (service/pool.py), on its track:
+
+  superstep | fused-dispatch     one tick of the pool (phase path | fused)
+    admission                    requests into free slots: fresh trees
+    select, expand, simulate,    the superstep's phases (expand and
+      backup                     simulate also inside a fused escape)
+    finalize-build               the host scatter of the finalize rows
+    fused-submit                 a fused dispatch's upload and queueing
+    fused-collect                the host waiting for its one read-back
+    fused-finish                 device rows into the state tables,
+                                 accounting, the escape, the commits
+    commits                      the move boundary of every dispatched slot
+      commit                     one committed move, holding:
+        snapshot                 the slot's tree copied to the host
+        reroot                   the host re-root of that copy
+        write-back               the re-rooted (or fresh) tree uploaded
+        st-write                 the state table compacted (or flushed)
+    compact-gather, compact-scatter   the compaction session's copies
+
+The three `fused-*` spans open and close with the ServiceStats timers
+of the same names (`t_fused_submit`, ...).  Traced, `admission` and
+`write-back` end with a device fence, so the
+uploads they queue are charged to them.  The overlap path's gangs share
+one device stream: there the fence (and an upload from pageable host
+memory, traced or not) also waits for the other gang's bodies in
+flight, which these two spans, and `commit`, then hold.
 
 The clock is injectable (``clock_ns``) so tests can pin nesting and
 ordering deterministically.
@@ -49,18 +89,22 @@ import json
 import time
 from typing import Callable, Optional
 
+from repro_torch.obs.metrics import MetricsRegistry
+
 __all__ = ["Span", "Tracer", "NullTracer", "NULL_TRACER"]
 
 
 class Span:
     """An open span: the token begin() hands out and end() consumes.
-    Carries everything the eventual "X" record needs except duration."""
+    Carries everything the eventual "X" record needs except duration,
+    and the microseconds its ended children on its track have covered."""
 
-    __slots__ = ("name", "cat", "tid", "ts", "args", "depth")
+    __slots__ = ("name", "cat", "tid", "ts", "args", "depth", "child")
 
     def __init__(self, name, cat, tid, ts, args, depth):
         self.name, self.cat, self.tid = name, cat, tid
         self.ts, self.args, self.depth = ts, args, depth
+        self.child = 0.0
 
 
 class _SpanCtx:
@@ -123,6 +167,10 @@ class Tracer:
             "ph": "M", "name": "process_name", "pid": pid, "tid": 0,
             "args": {"name": "search-service"},
         }]
+        # span totals: a registry of the tracer's own until bind_metrics,
+        # and each name's three counters looked up once
+        self._registry = MetricsRegistry()
+        self._totals: dict[str, tuple] = {}
 
     # ---- clock / buffer ----
     def _now_us(self) -> float:
@@ -154,6 +202,32 @@ class Tracer:
                 "tid": tid, "args": {"sort_index": tid}})
         return tid
 
+    # ---- span totals ----
+    def _totals_of(self, name: str) -> tuple:
+        totals = self._totals[name] = (
+            self._registry.counter(
+                "trace_span_seconds_total",
+                "seconds inside complete spans, by span name", span=name),
+            self._registry.counter(
+                "trace_span_self_seconds_total",
+                "seconds inside complete spans less their child spans on "
+                "the same track, by span name", span=name),
+            self._registry.counter(
+                "trace_spans_total", "complete spans ended, by span name",
+                span=name))
+        return totals
+
+    def bind_metrics(self, registry) -> None:
+        """Keep the span totals in `registry` from now on, carrying over
+        what they hold (a disabled registry binds nothing)."""
+        if not registry.enabled or registry is self._registry:
+            return
+        old, self._totals = self._totals, {}
+        self._registry = registry
+        for name, counters in old.items():
+            for was, now in zip(counters, self._totals_of(name)):
+                now.inc(was.value)
+
     # ---- complete spans ----
     def begin(self, name: str, cat: str = "", tid: int = 0, **args) -> Span:
         stack = self._stacks.setdefault(tid, [])
@@ -168,10 +242,17 @@ class Tracer:
             f"{tok.name!r} but "
             f"{stack[-1].name if stack else '<empty>'!r} is open")
         stack.pop()
+        dur = self._now_us() - tok.ts
+        if stack:
+            stack[-1].child += dur
+        total, own, count = (self._totals.get(tok.name)
+                             or self._totals_of(tok.name))
+        total.inc(1e-6 * dur)
+        own.inc(1e-6 * (dur - tok.child))
+        count.inc()
         self._push({
             "ph": "X", "name": tok.name, "cat": tok.cat, "pid": self.pid,
-            "tid": tok.tid, "ts": tok.ts,
-            "dur": self._now_us() - tok.ts, "args": tok.args})
+            "tid": tok.tid, "ts": tok.ts, "dur": dur, "args": tok.args})
 
     def span(self, name: str, cat: str = "", tid: int = 0,
              **args) -> _SpanCtx:
@@ -258,6 +339,9 @@ class NullTracer:
 
     def track(self, name: str) -> int:
         return 0
+
+    def bind_metrics(self, registry) -> None:
+        pass
 
     def begin(self, name, cat="", tid=0, **args):
         return None

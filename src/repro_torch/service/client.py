@@ -254,10 +254,13 @@ class SearchClient:
             metrics if isinstance(metrics, MetricsRegistry)
             else MetricsRegistry() if metrics else None)
         # serving backends carry their own telemetry (sim_server_*,
-        # sim_cache_*, serving_*): rebind it onto this client's registry
-        # so metrics() renders one coherent snapshot
+        # sim_cache_*, serving_*), and the tracer its span totals
+        # (trace_span_*): rebind them onto this client's registry so
+        # metrics() renders one coherent snapshot
         if self.registry is not None and hasattr(sim, "bind_metrics"):
             sim.bind_metrics(self.registry)
+        if self.registry is not None and self.tracer is not None:
+            self.tracer.bind_metrics(self.registry)
         self.core = SchedulerCore(
             env, sim, G, p, executor=executor, default_cfg=default_cfg,
             policy=policy, fuse_across_pools=fuse_across_pools,

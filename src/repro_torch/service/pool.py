@@ -57,7 +57,8 @@ arena's memory goes back to the allocator), keeping only
 queue/stat/result state; the next submit resurrects it with a fresh
 arena.
 
-Timing honesty: the phase timers fence the device (executor.block(),
+Timing honesty: the phase timers and the spans on the pool's trace track
+(obs.trace lists them) fence the device (executor.block(),
 torch.cuda.synchronize on a card) only when tracing is on; untraced, the
 select phase's host reads are the only waits, as in the reference.
 
@@ -113,6 +114,7 @@ what they compute.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Callable, Optional
@@ -321,7 +323,6 @@ class ServiceStats:
     fused_replays: int = 0       # superstep bodies run (graph replays)
     t_fused_submit: float = 0.0  # host: ST rows + upload + queueing the bodies
     t_fused_collect: float = 0.0  # host: the wait for the one read-back
-    t_fused_device: float = 0.0  # device: CUDA events around the bodies
     t_fused_finish: float = 0.0  # host: ST write-back, accounting, commits
     # admission-wait histogram: {ticks_waited: n_requests}
     wait_supersteps: dict = dataclasses.field(default_factory=dict)
@@ -602,6 +603,9 @@ class ArenaPool:
         limit = self.G if self.admit_limit is None \
             else max(0, min(self.admit_limit, self.G))
         active = sum(s is not None for s in self.slots)
+        if not self.queue or active >= limit:
+            return
+        tok = self.trace.begin("admission", cat="phase", tid=self._track)
         while self.queue and active < limit:
             g = self._place_slot()
             if g is None:   # every enabled shard is full
@@ -631,6 +635,9 @@ class ArenaPool:
                                uid=req.uid, slot=g, shard=g // self.shard_G,
                                wait=wait)
             active += 1
+        if self.trace.enabled:
+            self.exec.block()   # the fresh trees' device work stays here
+        self.trace.end(tok)
 
     def _active(self) -> np.ndarray:
         return np.array([s is not None for s in self.slots], bool)
@@ -1008,6 +1015,8 @@ class ArenaPool:
         self.stats.max_fused_rows = max(self.stats.max_fused_rows,
                                         len(pend.sim_states))
         t3 = time.perf_counter()
+        tok = self.trace.begin("finalize-build", cat="phase", tid=self._track,
+                               slots=len(act_idx))
         values_fx = np.asarray(fx.encode(np.asarray(values)), np.int32)
         fin_nodes = np.full((Ge, self.K), NULL, np.int32)
         fin_na = np.zeros((Ge, self.K), np.int32)
@@ -1052,6 +1061,7 @@ class ArenaPool:
                 padded = np.zeros((tp, cfg.Fp), np.float32)
                 padded[:, : pr.shape[1]] = pr
                 fin_pf[rr2, pos2] = np.asarray(fx.encode(padded), np.int32)
+        self.trace.end(tok)
         t4 = time.perf_counter()
 
         with self.trace.span("backup", cat="phase", tid=self._track,
@@ -1199,23 +1209,39 @@ class ArenaPool:
         session's sub-arena (`on_sub`), with its escape handled: a commit
         exit replays _commit_moves exactly like the K=1 path, an
         expansion escape completes the partial superstep through the
-        ordinary host path.  Returns the superstep count."""
+        ordinary host path.  Ends the open ``fused-dispatch`` span `tok`
+        when given.  Returns the superstep count."""
         t0 = time.perf_counter()
-        budget_left, states, start_size = self._fused_upload(
-            ex, rows, act_idx)
-        pend = ex.run_supersteps_submit(ex_active, self.p, K, self.env,
-                                        self.sim, states, budget_left,
-                                        self.alternating_signs)
-        t1 = time.perf_counter()
-        disp = ex.run_supersteps_collect(pend)
-        t2 = time.perf_counter()
-        self.stats.t_fused_submit += t1 - t0
-        self.stats.t_fused_collect += t2 - t1
-        self.stats.t_fused_device += 1e-3 * (disp.device_ms or 0.0)
-        n = self._fused_finish_one(ex, ex_active, rows, act_idx, disp,
-                                   start_size, on_sub, tok, t0)
-        self.stats.t_fused_finish += time.perf_counter() - t2
+        with self._fused_phase("fused-submit"):
+            budget_left, states, start_size = self._fused_upload(
+                ex, rows, act_idx)
+            pend = ex.run_supersteps_submit(ex_active, self.p, K, self.env,
+                                            self.sim, states, budget_left,
+                                            self.alternating_signs)
+        with self._fused_phase("fused-collect"):
+            disp = ex.run_supersteps_collect(pend)
+        with self._fused_phase("fused-finish", n=disp.n, escape=disp.escape):
+            n = self._fused_finish_one(ex, ex_active, rows, act_idx, disp,
+                                       start_size, on_sub, t0)
+        if tok is not None:
+            self.trace.end(tok)
         return n
+
+    @contextlib.contextmanager
+    def _fused_phase(self, name: str, **args):
+        """One interval of a fused dispatch (``fused-submit``,
+        ``fused-collect``, ``fused-finish``): its span on the pool's track
+        and its ServiceStats timer (``t_fused_submit``, ...) open and close
+        at the same points."""
+        timer = "t_" + name.replace("-", "_")
+        tok = self.trace.begin(name, cat="phase", tid=self._track, **args)
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            setattr(self.stats, timer,
+                    getattr(self.stats, timer) + time.perf_counter() - t0)
+            self.trace.end(tok)
 
     def _fused_upload(self, ex, rows, act_idx):
         """Host half of a fused dispatch's inputs: per-row remaining move
@@ -1232,7 +1258,7 @@ class ArenaPool:
         return budget_left, states, start_size
 
     def _fused_finish_one(self, ex, ex_active, rows, act_idx, disp,
-                          start_size, on_sub: bool, tok, t0: float) -> int:
+                          start_size, on_sub: bool, t0: float) -> int:
         """Accounting and escape handling for one collected fused
         dispatch."""
         A, p = len(act_idx), self.p
@@ -1305,10 +1331,12 @@ class ArenaPool:
             pend = _PendingStep(
                 ex=ex, ex_active=ex_active, rows=rows, act_idx=act_idx,
                 sel_dev=disp.sel_dev, hx=hx, sim_states=sim_states,
-                t_intree=t1 - t0, t_host=t2 - t1, tok=tok,
+                t_intree=t1 - t0, t_host=t2 - t1, tok=None,
                 compacted=on_sub)
             t3 = time.perf_counter()
-            values, priors = self._sim_evaluate(sim_states)
+            with self.trace.span("simulate", cat="phase", tid=self._track,
+                                 rows=len(sim_states)):
+                values, priors = self._sim_evaluate(sim_states)
             self.finish_superstep(pend, values, priors,
                                   t_sim=time.perf_counter() - t3)
             return n + 1
@@ -1317,8 +1345,6 @@ class ArenaPool:
         self.stats.t_intree += t1 - t0
         self._m_supersteps.inc(n)
         self._commit_moves(act_idx)
-        if tok is not None:
-            self.trace.end(tok)
         return n
 
     # ---- fused x overlap: double-buffered K-superstep dispatches ----
@@ -1332,12 +1358,12 @@ class ArenaPool:
         parts = []
         for child, c_active, rows, c_idx in self._shard_parts(act_idx):
             t0 = time.perf_counter()
-            budget_left, states, start_size = self._fused_upload(
-                child, rows, c_idx)
-            pend = child.run_supersteps_submit(
-                c_active, self.p, K, self.env, self.sim, states,
-                budget_left, self.alternating_signs, gang=gang)
-            self.stats.t_fused_submit += time.perf_counter() - t0
+            with self._fused_phase("fused-submit", gang=gang):
+                budget_left, states, start_size = self._fused_upload(
+                    child, rows, c_idx)
+                pend = child.run_supersteps_submit(
+                    c_active, self.p, K, self.env, self.sim, states,
+                    budget_left, self.alternating_signs, gang=gang)
             parts.append(dict(child=child, c_active=c_active, rows=rows,
                               act_idx=c_idx, start_size=start_size,
                               pend=pend, t0=t0))
@@ -1353,17 +1379,16 @@ class ArenaPool:
         path)."""
         ns = [0]
         for part in inf["parts"]:
-            t_c0 = time.perf_counter()
-            disp = part["child"].run_supersteps_collect(part["pend"])
-            t_c1 = time.perf_counter()
-            self._ov_wait_dev += t_c1 - t_c0
-            self.stats.t_fused_collect += t_c1 - t_c0
-            self.stats.t_fused_device += 1e-3 * (disp.device_ms or 0.0)
-            ns.append(self._fused_finish_one(
-                part["child"], part["c_active"], part["rows"],
-                part["act_idx"], disp, part["start_size"],
-                on_sub=False, tok=None, t0=part["t0"]))
-            self.stats.t_fused_finish += time.perf_counter() - t_c1
+            waited = self.stats.t_fused_collect
+            with self._fused_phase("fused-collect", gang=inf["gang"]):
+                disp = part["child"].run_supersteps_collect(part["pend"])
+            self._ov_wait_dev += self.stats.t_fused_collect - waited
+            with self._fused_phase("fused-finish", gang=inf["gang"],
+                                   n=disp.n, escape=disp.escape):
+                ns.append(self._fused_finish_one(
+                    part["child"], part["c_active"], part["rows"],
+                    part["act_idx"], disp, part["start_size"],
+                    on_sub=False, t0=part["t0"]))
         return max(ns)
 
     def _fused_overlap_tick(self, K: int) -> int:
@@ -1406,6 +1431,8 @@ class ArenaPool:
 
     # ---- move boundary: commit / advance / evict ----
     def _commit_moves(self, act_idx):
+        tok = self.trace.begin("commits", cat="commit", tid=self._track,
+                               slots=len(act_idx))
         sizes = self._sizes()
         best = None  # lazy: only computed when some slot finished its move
         for g in act_idx:
@@ -1423,11 +1450,15 @@ class ArenaPool:
                 continue
             if best is None:
                 best = self._best_actions()
-            self._advance(g, int(best[g]))
+            with self.trace.span("commit", cat="commit", tid=self._track,
+                                 slot=int(g)):
+                self._advance(g, int(best[g]))
+        self.trace.end(tok)
 
     def _advance(self, g: int, a: int):
         slot, env = self.slots[g], self.env
-        snap = self._slot_snapshot(g)
+        with self.trace.span("snapshot", cat="commit", tid=self._track):
+            snap = self._slot_snapshot(g)
         # every path below rewrites or frees this slot on the full arena,
         # so a resident sub-arena spanning it must end now (its final
         # state was just scattered by the snapshot sync)
@@ -1458,14 +1489,24 @@ class ArenaPool:
         slot.root_state = new_state
         slot.move_supersteps = 0
         new_root = int(snap["child"][root, a])
+        trace, tid = self.trace, self._track
         if self.reuse_subtree and new_root != NULL:
-            arrays, old2new = reroot.reroot(self.cfg, snap, new_root)
-            self.exec.write_slot(g, arrays)
-            self.sts[g].compact(old2new)
+            with trace.span("reroot", cat="commit", tid=tid):
+                arrays, old2new = reroot.reroot(self.cfg, snap, new_root)
+            with trace.span("write-back", cat="commit", tid=tid):
+                self.exec.write_slot(g, arrays)
+                if trace.enabled:
+                    self.exec.block()   # the upload stays in this span
+            with trace.span("st-write", cat="commit", tid=tid):
+                self.sts[g].compact(old2new)
             slot.prev_size = int(arrays["size"])
         else:  # paper-faithful full flush
-            self.exec.reset_slot(g, max(env.num_actions(new_state), 1))
-            self.sts[g].flush(new_state)
+            with trace.span("write-back", cat="commit", tid=tid):
+                self.exec.reset_slot(g, max(env.num_actions(new_state), 1))
+                if trace.enabled:
+                    self.exec.block()
+            with trace.span("st-write", cat="commit", tid=tid):
+                self.sts[g].flush(new_state)
             slot.prev_size = 1
 
     def _finish(self, res: SearchResult):
