@@ -270,6 +270,21 @@ Phases (each raises on any failure, so the exit code is not 0):
      tokens/s and peak memory.  The kernels line's rows gain
      launches_examples (each twin's launches; train_lm's are 0: it trains
      blockwise, and the flash kernel has no backward).
+ 19. the re-root kernel (kernels/csrc/reroot.cu) at the paper's Pong and
+     Gomoku widths (X=56,000, Fp=8; X=48,000, Fp=64), slot 1 of a G=2
+     arena holding a seeded random tree of X / 4 nodes (tests/tree_cases):
+     the kernel against its plain twin run on the card (every arena
+     array, the kept ids and old2new identical) on the root's largest
+     child and on the root itself; passes 1-3 timed by CUDA events (each
+     from the same arena state) and each pass's device time by the
+     profiler, against the bytes bound ((n + X) rows of 5 Fp + 6 ints at
+     3.35 TB/s: the kept rows read, the whole slot written) and the twin's
+     time; on the host clock, a whole commit's re-root through
+     CudaExecutor.reroot_slot (the row read, the passes, the kept ids
+     read back) beside the host path it replaced (slot_snapshot,
+     core.reroot.reroot, the upload); `reroot_kernel` lines, and one
+     `reroot` line with the row for PERF.md (launches during phase 9's
+     serving streams, four a re-root and one a commit that keeps no tree).
 
 It prints JSON lines; the line before the last is {"kernels": [...]} and
 the last is {"ok": true, "device": {...}}.  It imports nothing of the JAX
@@ -4436,6 +4451,125 @@ def phase_examples() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the re-root kernel at both full widths
+# ---------------------------------------------------------------------------
+
+REROOT_PASSES = ("reroot_order_kernel", "reroot_gather_kernel",
+                 "reroot_write_kernel")
+
+
+def reroot_kernel_row(shape: str) -> dict:
+    """Phase 19 at one width: kernel against the twin on the card, then
+    the timings (see the module docstring)."""
+    from repro_torch.core import reroot as host_reroot
+    from repro_torch.core.executor import CudaExecutor
+    from repro_torch.core.tree import (
+        FIELDS, NULL, TreeConfig, from_numpy, to_numpy)
+    from repro_torch.kernels import reroot as kreroot
+    import tree_cases
+
+    cfg = TreeConfig(**getattr(tree_cases, shape))
+    tree = tree_cases.random_tree(cfg, cfg.X // 4, np.random.RandomState(19))
+    other = tree_cases.random_tree(cfg, cfg.X // 8, np.random.RandomState(20))
+    stacked = {k: np.stack([other[k], tree[k]]) if k != "log_table"
+               else tree[k] for k in tree}
+    arena = from_numpy(stacked, DEV)
+    saved = {k: getattr(arena, k).clone() for k in FIELDS}
+
+    def reset():
+        for k in FIELDS:
+            getattr(arena, k).copy_(saved[k])
+
+    sc = kreroot.Scratch(cfg.X, cfg.Fp, DEV)
+    kids = [int(c) for c in tree["child"][0] if c != NULL]
+    # the root's child with the largest subtree, and the root itself
+    kept = {}
+    for c in kids + [0]:
+        reset()
+        kreroot.reroot(arena, 1, c, sc)
+        kept[c] = len(kreroot.read_order(sc))
+    largest = max(kids, key=lambda c: kept[c])
+    out = dict(shape=f"G=2 X={cfg.X} Fp={cfg.Fp} size={int(tree['size'])}")
+    for label, new_root in (("child", largest), ("root", 0)):
+        n = kept[new_root]
+        reset()
+        kreroot.reroot(arena, 1, new_root, sc)
+        kreroot.write(arena, 1, sc)
+        got, order = to_numpy(arena), kreroot.read_order(sc)
+        reset()
+        sc_plain = kreroot.Scratch(cfg.X, cfg.Fp, DEV)
+        kreroot.reroot_plain(arena, 1, new_root, sc_plain)
+        kreroot.write_plain(arena, 1, sc_plain)
+        want = to_numpy(arena)
+        bad = sum(int((got[k] != want[k]).sum()) for k in FIELDS)
+        bad += int((sc.old2new != sc_plain.old2new).sum())
+        bad += int((order != sc_plain.order[1:1 + n].cpu().numpy()).sum())
+        if bad:
+            raise AssertionError(f"reroot {shape} {label}: {bad} mismatches")
+
+        def kernel():
+            kreroot.reroot(arena, 1, new_root, sc)
+            kreroot.write(arena, 1, sc)
+
+        def plain():
+            kreroot.reroot_plain(arena, 1, new_root, sc_plain)
+            kreroot.write_plain(arena, 1, sc_plain)
+
+        ms = cuda_time_ms(kernel, reset, 50)
+        dev = {k: device_ms(kernel, reset, 20, k) for k in REROOT_PASSES}
+        plain_ms = cuda_time_ms(plain, reset, 5, warm=1)
+        nbytes = (n + cfg.X) * (5 * cfg.Fp + 6) * 4
+        bound = 1e3 * nbytes / H100_HBM_BYTES_PER_S
+        dev_ms = (None if any(v is None for v in dev.values())
+                  else sum(dev.values()))
+        out[label] = dict(
+            new_root=new_root, kept=n, ms=ms, device_ms=dev_ms,
+            device_ms_by_pass=dev, plain_ms=plain_ms, bytes=nbytes,
+            bound_ms=bound, bound_by="bytes",
+            roofline_pct=None if not dev_ms else 100 * bound / dev_ms)
+    # a whole commit's re-root on the host clock, the kernel path beside
+    # the host path it replaced, on one executor, alternating
+    ex = CudaExecutor(cfg, 2, device=DEV)
+    ex.set_tree(from_numpy(other, DEV), 0)
+    a = int(np.flatnonzero(tree["child"][0] == largest)[0])
+    walls = {"device": [], "host": []}
+    for i in range(20):
+        ex.set_tree(from_numpy(tree, DEV), 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i % 2:
+            snap = ex.slot_snapshot(1)
+            arrays, _ = host_reroot.reroot(cfg, snap, largest)
+            ex.set_tree(from_numpy(arrays, DEV), 1)
+        else:
+            ex.reroot_slot(1, a)
+        torch.cuda.synchronize()
+        walls["host" if i % 2 else "device"].append(
+            1e3 * (time.perf_counter() - t0))
+    out["commit_ms"] = {k: float(np.median(v[1:])) for k, v in walls.items()}
+    emit(phase="reroot_kernel", width=shape.lower(), **out)
+    return out
+
+
+def phase_reroot(serving_launches=None) -> dict:
+    """Phase 19: the re-root kernel at Pong's and Gomoku's full widths;
+    `serving_launches` is its launches during phase 9 (None alone)."""
+    from repro_torch.kernels import reroot as kreroot
+
+    t_phase = time.perf_counter()
+    n0 = kreroot.launches
+    rows = {shape.lower(): reroot_kernel_row(shape)
+            for shape in ("PONG", "GOMOKU")}
+    emit(phase="reroot", name="reroot", route="cuda",
+         source="src/repro_torch/kernels/csrc/reroot.cu",
+         replaces="none (src/repro/core/reroot.py runs on the host)",
+         launches_serving=serving_launches,
+         launches_phase=kreroot.launches - n0, library_ms=None,
+         seconds=time.perf_counter() - t_phase)
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -4478,7 +4612,10 @@ def main() -> int:
     kernels.append(dict(flash, launches=lm_launches["flash_attention"],
                         launches_serve=serve_launches))
     progress(9)
+    from repro_torch.kernels import reroot as kreroot
+    n_reroot = kreroot.launches
     serving = phase_serving(mc)
+    reroot_serving = kreroot.launches - n_reroot
     progress(10)
     fused_launches = phase_fused(serving["want"])
     progress(11)
@@ -4534,6 +4671,8 @@ def main() -> int:
             row["name"] + "_kernel")
         row["launches_mamba2_mcts"] = recurrent["mcts"][row["name"]]
         row["launches_mixtral_mcts"] = moe["mcts"][row["name"]]
+    progress(19)
+    phase_reroot(reroot_serving)
     emit(phase="total", seconds=round(time.perf_counter() - t_start, 3))
     print(gpu, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

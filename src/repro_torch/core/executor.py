@@ -26,6 +26,14 @@ queues it and returns the device id block without reading anything
 back, insert_host is the one blocking read, and insert() is the two back
 to back.
 
+Move commits: ``reroot_slot(g, a)`` reads slot g's root row, takes the
+child under action a as the new root and, when it is not NULL, re-roots
+the slot with its subtree's statistics kept (core.reroot's semantics).
+The device executors run kernels.reroot in place on the arena (the
+re-root kernel on a card, its plain twin on the CPU), so only the root's
+row and the kept ids reach the host; the numpy oracle re-roots a host
+snapshot with core.reroot.  ``root_row(g)`` is the small read alone.
+
 Slot compaction: ``gather_sub`` copies the active slots into a dense
 sub-executor of the same kind (padded to a power of two with copies of
 the first member, which run masked off) and ``scatter_sub`` writes the
@@ -59,9 +67,10 @@ import numpy as np
 import torch
 
 from repro_torch.core import intree, ref_sequential as ref
+from repro_torch.core import reroot
 from repro_torch.core.tree import (
-    FIELDS, NULL, TreeConfig, UCTree, arena_set_slot, arena_slot, from_numpy,
-    init_arena, init_tree, init_tree_arrays, resolve_device, to_numpy,
+    FIELDS, NULL, TreeConfig, UCTree, arena_set_slot, arena_slot, init_arena,
+    init_tree, init_tree_arrays, resolve_device, to_numpy,
 )
 from repro_torch.models.sharding import put_on_device
 from repro_torch.obs.trace import NULL_TRACER
@@ -93,7 +102,13 @@ class InTreeExecutor(Protocol):
     def best_actions(self) -> np.ndarray: ...
     def sizes(self) -> np.ndarray: ...
     def slot_snapshot(self, g: int) -> dict: ...
-    def write_slot(self, g: int, arrays: dict) -> None: ...
+    # the move commit: (root, child row, edge_N row) of slot g; and the
+    # re-root under action a -> (edge_N[root, :F] read before it, the new
+    # root, old2new), or (counts, NULL, None) leaving the slot as it was.
+    # `trace` gets the spans snapshot, reroot and write-back on track tid.
+    reroot_path: str   # where reroot_slot runs: "device" or "host"
+    def root_row(self, g: int) -> tuple: ...
+    def reroot_slot(self, g: int, a: int, trace=None, tid: int = 0) -> tuple: ...
     def block(self) -> None: ...
     def release(self) -> None: ...
     # OPTIONAL fused fast path (device executors only; absence of the
@@ -203,6 +218,8 @@ def _padded(slot_idx: np.ndarray, Gc: int) -> np.ndarray:
 class TorchExecutor:
     """G stacked trees on `device` + the plain torch in-tree ops."""
 
+    reroot_path = "device"
+
     def __init__(self, cfg: TreeConfig, G: int, variant: str = "faithful",
                  device=None, _trees: Optional[UCTree] = None):
         if variant not in intree.SELECT_VARIANTS:
@@ -215,6 +232,11 @@ class TorchExecutor:
         self.trees = (init_arena(cfg, G, device=self.device) if _trees is None
                       else put_on_device(_trees, self.device))
         self._fused: dict = {}  # gang -> cached core.fused.FusedProgram
+        from repro_torch.kernels import reroot as kreroot
+        self._kreroot = kreroot
+        self._reroot = None   # kernels.reroot.Scratch, made at first use
+        if self.device.type == "cuda":
+            kreroot.lib()   # built and loaded here, in set-up, not at a commit
 
     def _mask(self, active) -> torch.Tensor:
         return intree.as_mask(active, self.device)
@@ -264,8 +286,34 @@ class TorchExecutor:
     def slot_snapshot(self, g: int) -> dict:
         return to_numpy(arena_slot(self.trees, g))
 
-    def write_slot(self, g: int, arrays: dict):
-        arena_set_slot(self.trees, g, from_numpy(arrays, self.device))
+    def _scratch(self):
+        if self._reroot is None:
+            self._reroot = self._kreroot.Scratch(self.cfg.X, self.cfg.Fp,
+                                                 self.device)
+        return self._reroot
+
+    def root_row(self, g: int) -> tuple:
+        return self._kreroot.root_row(self.trees, g, self._scratch())
+
+    def reroot_slot(self, g: int, a: int, trace=NULL_TRACER,
+                    tid: int = 0) -> tuple:
+        """The re-root in place on the arena (kernels.reroot): the root's
+        row read, the kept ids computed and read back, the slot written
+        from the scratch tree (fenced when traced)."""
+        with trace.span("snapshot", cat="commit", tid=tid):
+            _, child, edge_N = self.root_row(g)
+        counts, new_root = edge_N[: self.cfg.F], int(child[a])
+        if new_root == NULL:
+            return counts, NULL, None
+        kr, sc = self._kreroot, self._scratch()
+        with trace.span("reroot", cat="commit", tid=tid):
+            kr.reroot(self.trees, g, new_root, sc)
+            order = kr.read_order(sc)
+        with trace.span("write-back", cat="commit", tid=tid):
+            kr.write(self.trees, g, sc)
+            if trace.enabled:
+                self.block()   # the write stays in this span
+        return counts, new_root, kr.old2new_of(order, self.cfg.X)
 
     def block(self):
         if self.device.type == "cuda":
@@ -277,6 +325,7 @@ class TorchExecutor:
         unusable afterwards."""
         self.trees = None
         self._fused = {}
+        self._reroot = None
 
     # -- fused multi-superstep dispatch (core.fused) -------------------
     def fused_program(self, p: int, env, sim, alternating: bool,
@@ -394,6 +443,8 @@ class ReferenceExecutor:
     [G, ...] host-array convention as the device executors; inactive
     slots produce the dead rows the driver never reads."""
 
+    reroot_path = "host"
+
     def __init__(self, cfg: TreeConfig, G: int, _trees: Optional[list] = None):
         self.cfg, self.G = cfg, G
         self.trees = ([self.init(cfg.F) for _ in range(G)] if _trees is None
@@ -471,8 +522,26 @@ class ReferenceExecutor:
     def slot_snapshot(self, g: int) -> dict:
         return self.snapshot(self.trees[g])
 
-    def write_slot(self, g: int, arrays: dict):
-        self.trees[g] = ref.MutableTree.from_arrays(arrays)
+    def root_row(self, g: int) -> tuple:
+        t = self.trees[g]
+        return int(t.root), t.child[t.root].copy(), t.edge_N[t.root].copy()
+
+    def reroot_slot(self, g: int, a: int, trace=NULL_TRACER,
+                    tid: int = 0) -> tuple:
+        """The host re-root: the slot's snapshot, core.reroot over it,
+        the result written back."""
+        with trace.span("snapshot", cat="commit", tid=tid):
+            snap = self.slot_snapshot(g)
+        root = int(snap["root"])
+        counts, new_root = snap["edge_N"][root][: self.cfg.F], \
+            int(snap["child"][root, a])
+        if new_root == NULL:
+            return counts, NULL, None
+        with trace.span("reroot", cat="commit", tid=tid):
+            arrays, old2new = reroot.reroot(self.cfg, snap, new_root)
+        with trace.span("write-back", cat="commit", tid=tid):
+            self.set_tree(arrays, g)
+        return counts, new_root, old2new
 
     def block(self):
         pass

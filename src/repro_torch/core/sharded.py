@@ -40,6 +40,7 @@ from typing import Optional
 import numpy as np
 
 from repro_torch.core.tree import NULL, TreeConfig
+from repro_torch.obs.trace import NULL_TRACER
 
 __all__ = ["ShardedExecutor", "ShardedSelection", "make_sharded_executor"]
 
@@ -192,9 +193,18 @@ class ShardedExecutor:
         child, r = self._locate(int(g))
         return child.slot_snapshot(r)
 
-    def write_slot(self, g: int, arrays: dict):
+    @property
+    def reroot_path(self) -> str:
+        return self.shards[0][0].reroot_path
+
+    def root_row(self, g: int) -> tuple:
         child, r = self._locate(int(g))
-        child.write_slot(r, arrays)
+        return child.root_row(r)
+
+    def reroot_slot(self, g: int, a: int, trace=NULL_TRACER,
+                    tid: int = 0) -> tuple:
+        child, r = self._locate(int(g))
+        return child.reroot_slot(r, a, trace, tid)
 
     def block(self):
         for child, _, _ in self.shards:

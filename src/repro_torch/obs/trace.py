@@ -65,16 +65,20 @@ The spans of a serving pool (service/pool.py), on its track:
                                  accounting, the escape, the commits
     commits                      the move boundary of every dispatched slot
       commit                     one committed move, holding:
-        snapshot                 the slot's tree copied to the host
-        reroot                   the host re-root of that copy
-        write-back               the re-rooted (or fresh) tree uploaded
+        snapshot                 the root's row read (the whole tree, for
+                                 a request that keeps it, or on the numpy
+                                 oracle's host path)
+        reroot                   the re-root's kernels and the kept ids
+                                 read back (the oracle: core.reroot)
+        write-back               the slot written from the re-root's
+                                 scratch tree (or a fresh tree uploaded)
         st-write                 the state table compacted (or flushed)
     compact-gather, compact-scatter   the compaction session's copies
 
 The three `fused-*` spans open and close with the ServiceStats timers
 of the same names (`t_fused_submit`, ...).  Traced, `admission` and
 `write-back` end with a device fence, so the
-uploads they queue are charged to them.  The overlap path's gangs share
+device work they queue (uploads, the re-root's write) is charged to them.  The overlap path's gangs share
 one device stream: there the fence (and an upload from pageable host
 memory, traced or not) also waits for the other gang's bodies in
 flight, which these two spans, and `commit`, then hold.

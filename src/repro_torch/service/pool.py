@@ -21,9 +21,10 @@ Lifecycle of a request:
          -> move committed (robust child) and emitted as a MoveEvent to
             the pool's move listener, then either
               * evicted with its action trace + root visit distributions, or
-              * advanced in place: core.reroot extracts the chosen child's
-                subtree (statistics preserved) and the search continues on
-                the same slot for its next move.
+              * advanced in place: the executor re-roots the slot on the
+                chosen child's subtree (statistics preserved; on a device
+                arena in place, kernels.reroot) and the search continues
+                on the same slot for its next move.
   A request can also leave early: `cancel(uid)` removes it from the queue
   or frees its slot mid-flight (partial moves are kept on the result),
   and the scheduler core uses the same path for deadline eviction.
@@ -122,7 +123,6 @@ from typing import Callable, Optional
 import numpy as np
 
 from repro_torch.core import fixedpoint as fx
-from repro_torch.core import reroot
 from repro_torch.core.executor import CompactionSession, make_intree_executor
 from repro_torch.core.expand import ExpansionEngine
 from repro_torch.core.mcts import Environment, SimulationBackend
@@ -499,6 +499,10 @@ class ArenaPool:
                 "per-tick percent of wall not spent blocked on env "
                 "workers or device reads", bucket=label)
         self.exec = self._make_executor()
+        self._m_reroots = reg.counter(
+            "service_reroots_total",
+            "move commits that re-rooted their slot, by where the re-root "
+            "ran", bucket=label, path=self.exec.reroot_path)
         self.sts = self._make_state_tables()
         self.slots: list[Optional[_Slot]] = [None] * G
         self.queue: list[SearchRequest] = []
@@ -759,15 +763,6 @@ class ArenaPool:
         if ses is not None and ses.open and ses.dirty:
             best[ses.slot_idx] = np.asarray(ses.sub.best_actions())[: ses.A]
         return best
-
-    def _slot_snapshot(self, g: int) -> dict:
-        """Snapshot through the session: a dirty sub-arena is scattered
-        back first, then the full arena is read as usual."""
-        ses = self._session
-        if ses is not None and ses.owns(int(g)) and ses.sync():
-            self.stats.session_scatters += 1
-            self._m_scatters.inc()
-        return self.exec.slot_snapshot(g)
 
     def _invalidate_session(self, g: int):
         """A host-side write (reroot / reset / eviction) is about to touch
@@ -1457,20 +1452,28 @@ class ArenaPool:
 
     def _advance(self, g: int, a: int):
         slot, env = self.slots[g], self.env
-        with self.trace.span("snapshot", cat="commit", tid=self._track):
-            snap = self._slot_snapshot(g)
-        # every path below rewrites or frees this slot on the full arena,
-        # so a resident sub-arena spanning it must end now (its final
-        # state was just scattered by the snapshot sync)
+        trace, tid = self.trace, self._track
+        # every path below reads this slot on the full arena and rewrites
+        # or frees it, so a resident sub-arena spanning it ends here (its
+        # close scatters the sub-arena's last supersteps back first)
         self._invalidate_session(g)
-        root = int(snap["root"])
-        counts = np.array(snap["edge_N"][root][: slot.cfg.F], np.int64)
         new_state, reward, term = env.step(slot.root_state, a)
+        slot.moves_done += 1
+        last = bool(term) or slot.moves_done >= slot.req.moves
+        snap = old2new = None
+        if self.reuse_subtree and not last:
+            counts, _, old2new = self.exec.reroot_slot(g, a, trace, tid)
+        else:
+            with trace.span("snapshot", cat="commit", tid=tid):
+                if last and slot.req.keep_tree:
+                    snap = self.exec.slot_snapshot(g)
+                    counts = snap["edge_N"][int(snap["root"])]
+                else:
+                    counts = self.exec.root_row(g)[2]
+        counts = np.array(counts[: slot.cfg.F], np.int64)
         slot.res.actions.append(a)
         slot.res.rewards.append(float(reward))
         slot.res.visit_counts.append(counts)
-        slot.moves_done += 1
-        last = bool(term) or slot.moves_done >= slot.req.moves
         self.trace.instant("move-commit", cat="request", tid=self._track,
                            uid=slot.req.uid, move=slot.moves_done - 1,
                            action=a, last=last)
@@ -1480,27 +1483,19 @@ class ArenaPool:
                 reward=float(reward), visit_counts=counts, last=last))
         if last:
             slot.res.terminal = bool(term)
-            if slot.req.keep_tree:
-                slot.res.tree_snapshot = snap
+            slot.res.tree_snapshot = snap
             self._finish(slot.res)
             self.slots[g] = None
             return
         # long-lived request: next move on the same slot
         slot.root_state = new_state
         slot.move_supersteps = 0
-        new_root = int(snap["child"][root, a])
-        trace, tid = self.trace, self._track
-        if self.reuse_subtree and new_root != NULL:
-            with trace.span("reroot", cat="commit", tid=tid):
-                arrays, old2new = reroot.reroot(self.cfg, snap, new_root)
-            with trace.span("write-back", cat="commit", tid=tid):
-                self.exec.write_slot(g, arrays)
-                if trace.enabled:
-                    self.exec.block()   # the upload stays in this span
+        if old2new is not None:   # re-rooted on the chosen child's subtree
+            self._m_reroots.inc()
             with trace.span("st-write", cat="commit", tid=tid):
                 self.sts[g].compact(old2new)
-            slot.prev_size = int(arrays["size"])
-        else:  # paper-faithful full flush
+            slot.prev_size = int(np.count_nonzero(old2new != NULL))
+        else:  # paper-faithful full flush (or the child was never expanded)
             with trace.span("write-back", cat="commit", tid=tid):
                 self.exec.reset_slot(g, max(env.num_actions(new_state), 1))
                 if trace.enabled:

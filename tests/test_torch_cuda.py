@@ -15,7 +15,10 @@ held to the numpy oracle on a short G=16 stream with sessions open, also
 with the fused K-superstep dispatch; Node Insertion and a fused submit
 must not synchronise, the fused dispatch's CUDA graph must equal the
 eager superstep body on every escape, and a retired pool or a released
-executor must free its arena (and its graph).
+executor must free its arena (and its graph).  The re-root kernel against
+its plain twin at Pong's and Gomoku's full X (tests/tree_cases.py trees),
+every arena tensor kept at its address, and a fused pool re-rooting on
+the card against the numpy oracle.
 The flash-attention kernel is held to its plain version at the JAX flash
 test's tolerances (f32 2e-5, bf16 2e-2); in bf16 also to the plain version
 run in f32 on the same inputs, within one bf16 rounding of the output,
@@ -175,6 +178,146 @@ def test_launch_counters_count_kernel_launches_only():
     uct_backup.backup_arena(cfg, arena, act, sel, sel.leaves, z)
     torch.cuda.synchronize()
     assert (uct_select.launches, uct_backup.launches) == (n_sel + 1, n_bak + 1)
+
+
+# -- the re-root kernel (kernels.reroot) ------------------------------------
+
+def reroot_cases(shape: str):
+    """(config, tree, new roots) at the configuration's full X: seeded
+    random valid trees of X / 4 and of up to X nodes; as new roots, the
+    first six children of the root (two in the larger tree), the deepest
+    leaf and the root itself."""
+    cfg = TreeConfig(**getattr(tree_cases, shape))
+    rng = np.random.RandomState(11)
+    out = []
+    for n in (cfg.X // 4, cfg.X):
+        t = tree_cases.random_tree(cfg, n, rng)
+        kids = [int(c) for c in t["child"][0] if c != NULL]
+        size = int(t["size"])
+        leaves = np.flatnonzero((t["child"][:size] == NULL).all(axis=1))
+        leaf = int(leaves[np.argmax(t["node_depth"][leaves])])
+        out.append((cfg, t, kids[:6 if n < cfg.X else 2] + [leaf, 0]))
+    return out
+
+
+def reroot_both(cfg, arena_cpu, arena_dev, g, new_root):
+    """One re-root of slot g through the twin (CPU arena) and the kernel
+    (card arena); returns both scratches."""
+    from repro_torch.kernels import reroot as kreroot
+
+    sc_cpu = kreroot.Scratch(cfg.X, cfg.Fp, "cpu")
+    sc_dev = kreroot.Scratch(cfg.X, cfg.Fp, "cuda")
+    for arena, sc in ((arena_cpu, sc_cpu), (arena_dev, sc_dev)):
+        kreroot.reroot(arena, g, new_root, sc)
+        kreroot.write(arena, g, sc)
+    torch.cuda.synchronize()
+    return sc_cpu, sc_dev
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["PONG", "GOMOKU"])
+def test_reroot_kernel_matches_twin_at_full_width(shape):
+    """The kernel against its plain twin at the configuration's full X,
+    three slots, re-rooting slot 1: every arena array identical (the
+    other slots untouched), the kept ids and old2new identical, every
+    arena tensor at its address, four launches counted a re-root (the
+    row read, then passes 1-3)."""
+    need_cuda()
+    from repro_torch.kernels import reroot as kreroot
+
+    for cfg, tree, roots in reroot_cases(shape):
+        other = tree_cases.random_tree(cfg, cfg.X // 8,
+                                       np.random.RandomState(5))
+        stacked = {k: np.stack([other[k], tree[k], other[k]])
+                   if k != "log_table" else tree[k] for k in tree}
+        for new_root in roots:
+            arena_cpu = from_numpy(stacked, "cpu")
+            arena_dev = from_numpy(stacked, "cuda")
+            ptrs = {k: getattr(arena_dev, k).data_ptr() for k in
+                    vars(arena_dev)}
+            n0 = kreroot.launches
+            sc_dev = kreroot.Scratch(cfg.X, cfg.Fp, "cuda")
+            row = kreroot.root_row(arena_dev, 1, sc_dev)
+            assert row[0] == 0 and (row[1] == tree["child"][0]).all()
+            assert (row[2] == tree["edge_N"][0]).all()
+            sc_cpu, sc_dev = reroot_both(cfg, arena_cpu, arena_dev, 1,
+                                         new_root)
+            assert kreroot.launches - n0 == 4
+            assert {k: getattr(arena_dev, k).data_ptr()
+                    for k in vars(arena_dev)} == ptrs
+            got, want = to_numpy(arena_dev), to_numpy(arena_cpu)
+            for k in want:
+                np.testing.assert_array_equal(got[k], want[k],
+                                              err_msg=f"{shape} {new_root} {k}")
+            for k in stacked:   # slots 0 and 2 as they were
+                if k != "log_table":
+                    np.testing.assert_array_equal(got[k][[0, 2]],
+                                                  stacked[k][[0, 2]])
+            n = int(sc_cpu.order[0])
+            assert int(got["size"][1]) == n
+            np.testing.assert_array_equal(sc_dev.order[:1 + n].cpu().numpy(),
+                                          sc_cpu.order[:1 + n].numpy())
+            np.testing.assert_array_equal(sc_dev.old2new.cpu().numpy(),
+                                          sc_cpu.old2new.numpy())
+            np.testing.assert_array_equal(kreroot.read_order(sc_dev),
+                                          sc_cpu.order[1:1 + n].numpy())
+
+
+@pytest.mark.cuda
+def test_fused_pool_reroots_on_the_card():
+    """SearchClient(supersteps_per_dispatch=4) on the card with subtree
+    reuse: the stream equals the numpy oracle's (held to the JAX package
+    on the CPU, tests/test_torch_reroot.py), no commit reads a whole
+    tree but the kept ones, every re-rooting commit counts as a device
+    re-root and launched the kernel's four launches."""
+    need_cuda()
+    from repro_torch.core.executor import TorchExecutor
+    from repro_torch.kernels import reroot as kreroot
+    from repro_torch.service import SearchClient, SearchRequest
+
+    def run(executor, **kw):
+        cl = SearchClient(BanditTreeEnv(fanout=4, terminal_depth=10),
+                          BanditValueBackend(), G=8, p=4, executor=executor,
+                          default_cfg=TreeConfig(X=2048, F=4, D=6),
+                          device="cuda", metrics=True, **kw)
+        rng = np.random.RandomState(3)
+        try:
+            hs = [cl.submit(SearchRequest(
+                uid=i, seed=int(rng.randint(1000)),
+                budget=int(rng.randint(3, 9)), moves=int(rng.randint(2, 5)),
+                keep_tree=i % 4 == 0)) for i in range(20)]
+            return {h.uid: h.result() for h in hs}, cl
+        finally:
+            cl.close()
+
+    snapshot = TorchExecutor.slot_snapshot
+    reads = []
+    TorchExecutor.slot_snapshot = lambda ex, g: reads.append(g) or snapshot(ex, g)
+    try:
+        n0 = kreroot.launches
+        got, cl = run("cuda", supersteps_per_dispatch=4)
+        launched = kreroot.launches - n0
+    finally:
+        TorchExecutor.slot_snapshot = snapshot
+    want, _ = run("reference")
+    assert cl.stats.fused_dispatches > 0 and cl.stats.fused_escape_commit > 0
+    for uid, b in want.items():
+        a = got[uid]
+        assert (a.actions, a.rewards, a.supersteps) == \
+            (b.actions, b.rewards, b.supersteps), uid
+        for va, vb in zip(a.visit_counts, b.visit_counts, strict=True):
+            np.testing.assert_array_equal(va, vb)
+        for k in (b.tree_snapshot or {}):
+            np.testing.assert_array_equal(a.tree_snapshot[k],
+                                          b.tree_snapshot[k], err_msg=k)
+    assert len(reads) == sum(r.tree_snapshot is not None
+                             for r in want.values())
+    series = cl.registry.snapshot()["service_reroots_total"]
+    reroots = sum(v for k, v in series.items() if 'path="device"' in k)
+    commits = sum(len(r.actions) for r in want.values())
+    assert reroots == sum(len(r.actions) - 1 for r in want.values()) > 0
+    # a row read a commit that keeps no tree, passes 1-3 a re-root
+    assert launched == commits - len(reads) + 3 * reroots
 
 
 FLASH_CASES = [  # B, Sq, Sk, H, Hkv, dh, causal, window
