@@ -51,10 +51,11 @@ ENTRY_POINTS = {**{fn: ARGTYPES for fn in DTYPES.values()},
                 "flash_bf16_config": [_I, _IP, _IP]}
 
 
-def flash_attention_plain(q, k, v, *, causal=True, window=None):
+def flash_attention_plain(q, k, v, *, causal=True, window=None, scale=None):
     """The plain version: the port's naive_attention, in q's dtype."""
     from repro_torch.models.attention import naive_attention
-    return naive_attention(q, k, v, causal=causal, window=window).to(q.dtype)
+    return naive_attention(q, k, v, causal=causal, window=window,
+                           scale=scale).to(q.dtype)
 
 
 def attended_pairs(Sq: int, Sk: int, causal: bool, window) -> int:
@@ -119,11 +120,11 @@ def check_tma_layout(name, t):
                 f"multiple of 16 bytes (TMA)")
 
 
-def flash_attention(q, k, v, *, causal=True, window=None):
+def flash_attention(q, k, v, *, causal=True, window=None, scale=None):
     """q: [B, Sq, H, dh]; k/v: [B, Sk, Hkv, dh] (H % Hkv == 0), float32
-    or bfloat16, read through their strides.  Returns [B, Sq, H, dh] in
-    q's dtype.  The launch goes on the current stream and does not
-    synchronise."""
+    or bfloat16, read through their strides.  `scale` multiplies the
+    scores (None: 1/sqrt(dh)).  Returns [B, Sq, H, dh] in q's dtype.  The
+    launch goes on the current stream and does not synchronise."""
     global launches
     _check(q, k, v, causal, window)
     dev = q.device
@@ -133,7 +134,8 @@ def flash_attention(q, k, v, *, causal=True, window=None):
         return torch.empty(q.shape, dtype=q.dtype, device=dev)
     if dev.type == "cpu":
         with roofline.quiet():
-            return flash_attention_plain(q, k, v, causal=causal, window=window)
+            return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                         scale=scale)
     if dev.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda (or cpu: plain; "
                          f"meta: shapes), not {dev}")
@@ -147,7 +149,7 @@ def flash_attention(q, k, v, *, causal=True, window=None):
         return out
     lib = build.load(NAME, ENTRY_POINTS)
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
-    scale = float(1.0 / np.sqrt(dh))
+    scale = float(1.0 / np.sqrt(dh)) if scale is None else float(scale)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = getattr(lib, DTYPES[q.dtype])(

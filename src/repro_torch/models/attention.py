@@ -21,7 +21,16 @@ of place then (``layers.tracked``).
 Decode (S == 1 with a cache) attends a single query over the cache
 buffer with a validity mask, in plain torch for every ``impl``, as in the
 JAX package.  Windowed layers use a ring buffer of size ``window``.
-Caches store K after RoPE (absolute positions).
+Caches store K after RoPE (absolute positions).  An extend (S > 1 with
+``extend=True``: the cache holds the sequence's earlier positions) writes
+its K/V into the cache and attends its queries over the buffer, each
+query over the slots at or before its own position, in plain torch like
+a decode (global GQA layers only).
+
+GQA layers take two settings from the config: ``use_rope`` False leaves
+q and k without a positional embedding (NoPE, granite-4.0-h), and
+``attn_scale`` sets the softmax scale (0: ``1/sqrt(head_dim)``) on every
+path, the flash kernel's included.
 
 Layouts are the JAX package's: q ``[B,S,H,dh]``, k/v ``[B,S,Hkv,dh]``,
 ``wq [d,H,dh]``, ``wk``/``wv [d,Hkv,dh]``, ``wo [H,dh,d]``.  Where the JAX
@@ -271,38 +280,54 @@ def _proj_in(x, w):
     return (x @ w.reshape(d, H * dh)).reshape(*x.shape[:2], H, dh)
 
 
-def attn_forward(cfg, spec, p, x, positions, cache=None, impl="blockwise"):
+def _scale(cfg, dh: int) -> float:
+    return cfg.attn_scale or 1.0 / math.sqrt(dh)
+
+
+def attn_forward(cfg, spec, p, x, positions, cache=None, impl="blockwise",
+                 extend=False):
     """Self-attention.  x: [B,S,d].  cache: None (prefill without cache)
-    or dict(k, v, pos) for decode / prefill-with-cache, written in place.
-    Returns (out [B,S,d], cache)."""
+    or dict(k, v, pos) for decode / prefill-with-cache, written in place;
+    with `extend` the cache holds the positions before these (module
+    docstring).  Returns (out [B,S,d], cache)."""
     if impl not in IMPLS:
         raise ValueError(f"impl {impl!r} not in {IMPLS}")
     if cfg.attn_impl == "mla":
+        if extend:
+            raise NotImplementedError("an MLA layer does not extend a cache")
         return _mla_forward(cfg, p, x, positions, cache, impl)
     S = x.shape[1]
-    q = L.rope(_proj_in(x, p["wq"]), positions, cfg.rope_theta)
-    k = L.rope(_proj_in(x, p["wk"]), positions, cfg.rope_theta)
+    q, k = _proj_in(x, p["wq"]), _proj_in(x, p["wk"])
+    if cfg.use_rope:
+        q = L.rope(q, positions, cfg.rope_theta)
+        k = L.rope(k, positions, cfg.rope_theta)
     v = _proj_in(x, p["wv"])
+    scale = _scale(cfg, q.shape[-1])
 
     if cache is not None:
         cache = _cache_update(cfg, spec, cache, k, v, positions)
         if S == 1:  # decode
             out = _decode_attend(cfg, spec, q, cache, positions)
             return _proj_out(out, p["wo"]), cache
+        if extend:
+            out = _extend_attend(cfg, spec, q, cache, positions)
+            return _proj_out(out, p["wo"]), cache
         # prefill-with-cache: attend over the raw (unwrapped) K/V; the ring
         # buffer is only for subsequent decode steps.
+    elif extend:
+        raise ValueError("extend needs the cache of the earlier positions")
 
     if impl == "naive":
         out = naive_attention(q, k, v, causal=True, window=spec.window,
-                              prefix=cfg.vlm_patches)
+                              prefix=cfg.vlm_patches, scale=scale)
     elif impl == "blockwise":
         out = blockwise_attention(q, k, v, causal=True, window=spec.window,
-                                  prefix=cfg.vlm_patches)
+                                  prefix=cfg.vlm_patches, scale=scale)
     else:
         if cfg.vlm_patches:
             raise NotImplementedError(
                 "impl='flash' has no prefix mask (nor has the Pallas kernel)")
-        out = _flash(q, k, v, causal=True, window=spec.window)
+        out = _flash(q, k, v, causal=True, window=spec.window, scale=scale)
     return _proj_out(out, p["wo"]), cache
 
 
@@ -405,9 +430,25 @@ def _decode_attend(cfg, spec, q, cache, positions):
     positions: [1] shared, or [B, 1] per-row (ragged batching)."""
     valid = _valid_slots(cache["k"].shape[1], positions, q.shape[0],
                          spec.window)
-    scale = 1.0 / math.sqrt(q.shape[-1])
-    s = _gqa_scores(q * scale, cache["k"])            # [B,H,1,buf]
+    s = _gqa_scores(q * _scale(cfg, q.shape[-1]), cache["k"])   # [B,H,1,buf]
     s = torch.where(valid[:, None, None, :], s, NEG)
+    p_attn = torch.softmax(s, dim=-1)
+    return _gqa_out(p_attn.to(cache["v"].dtype), cache["v"])
+
+
+def _extend_attend(cfg, spec, q, cache, positions):
+    """Queries at `positions` ([S] shared or [B, S] per row) over the
+    cache buffer, which holds every position up to the last of them: each
+    reads the slots at or before its own position.  A global (unwrapped)
+    buffer only."""
+    if spec.window is not None:
+        raise NotImplementedError("a windowed layer does not extend a cache")
+    kpos = torch.arange(cache["k"].shape[1], device=q.device)
+    valid = kpos <= positions[..., :, None]           # [S|B,S, buf]
+    if valid.dim() == 2:
+        valid = valid[None]
+    s = _gqa_scores(q * _scale(cfg, q.shape[-1]), cache["k"])   # [B,H,S,buf]
+    s = torch.where(valid[:, None], s, NEG)
     p_attn = torch.softmax(s, dim=-1)
     return _gqa_out(p_attn.to(cache["v"].dtype), cache["v"])
 

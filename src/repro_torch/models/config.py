@@ -51,16 +51,29 @@ class ModelConfig:
     tie_embeddings: bool = True
     embed_scale: bool = False     # gemma-style sqrt(d_model) input scaling
     logit_softcap: float = 0.0    # gemma-style tanh soft-cap (0 = off)
+    norm_eps: float = 1e-6        # the RMS / layer norms' epsilon
+    # muP multipliers (granite-4.0-h): the embeddings times
+    # embed_multiplier, each residual branch times residual_multiplier,
+    # the logits divided by logits_scaling (1.0 = off)
+    embed_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
 
     # MoE
     n_experts: int = 0
     top_k: int = 0
     n_shared_experts: int = 0
     moe_d_ff: int = 0
+    shared_d_ff: int = 0          # the shared experts' width (0 = moe_d_ff
+    #                               times n_shared_experts)
+    moe_dropless: bool = False    # capacity that drops no (token, expert)
+    #                               pair of a call
     router_aux_coef: float = 0.01
 
     # attention implementation
     attn_impl: str = "gqa"        # "gqa" | "mla"
+    use_rope: bool = True         # False: no positional embedding (NoPE)
+    attn_scale: float = 0.0       # softmax scale (0 = 1/sqrt(head_dim))
     mla_absorb: bool = False      # absorbed-matmul MLA decode (§Perf)
     q_lora_rank: int = 0          # MLA (deepseek-v3)
     kv_lora_rank: int = 0
@@ -74,6 +87,10 @@ class ModelConfig:
     ssd_expand: int = 2
     ssd_chunk: int = 256
     conv_width: int = 4
+    # "jax": the JAX package's block (SiLU before the conv, no norm);
+    # "mamba2": the published one (the conv, then SiLU; y * silu(z) put
+    # through a gated RMSNorm with a learned weight before out_proj)
+    ssd_block: str = "jax"
 
     # RG-LRU (recurrentgemma)
     lru_width: int = 0
@@ -105,6 +122,11 @@ class ModelConfig:
     @property
     def ssd_n_heads(self) -> int:
         return self.ssd_d_inner // self.ssd_headdim
+
+    @property
+    def shared_width(self) -> int:
+        """Width of the shared expert's FFN (all shared experts as one)."""
+        return self.shared_d_ff or self.moe_d_ff * self.n_shared_experts
 
     def layer_specs(self):
         """Flat per-layer spec list (order of execution)."""
@@ -191,6 +213,8 @@ def _layer_params(cfg, spec: LayerSpec, cross: bool, active_only=False) -> int:
         n += 3 * nh                        # A, dt_bias, D
         n += di * d                        # out_proj
         n += d
+        if cfg.ssd_block == "mamba2":
+            n += di                        # the gated norm's weight
     elif spec.kind == "rglru":
         w = cfg.lru_width or d
         n += d * w * 2 + cfg.conv_width * w + 2 * w + w * d + d
@@ -200,6 +224,7 @@ def _layer_params(cfg, spec: LayerSpec, cross: bool, active_only=False) -> int:
         n += mult * d * cfg.d_ff + d
     elif spec.mlp == "moe":
         mult = 3 if cfg.gated_mlp else 2
-        e = (cfg.top_k if active_only else cfg.n_experts) + cfg.n_shared_experts
-        n += e * mult * d * cfg.moe_d_ff + d * cfg.n_experts + d
+        e = cfg.top_k if active_only else cfg.n_experts
+        n += e * mult * d * cfg.moe_d_ff + mult * d * cfg.shared_width
+        n += d * cfg.n_experts + d
     return n

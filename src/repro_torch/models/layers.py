@@ -82,10 +82,10 @@ def norm(cfg, p, x):
     if cfg.norm == "layernorm":
         mu = xf.mean(-1, keepdim=True)
         var = xf.var(-1, keepdim=True, unbiased=False)
-        y = (xf - mu) * torch.rsqrt(var + 1e-6) * p["scale"] + p["bias"]
+        y = (xf - mu) * torch.rsqrt(var + cfg.norm_eps) * p["scale"] + p["bias"]
     else:
         ms = xf.square().mean(-1, keepdim=True)
-        y = xf * torch.rsqrt(ms + 1e-6) * p["scale"]
+        y = xf * torch.rsqrt(ms + cfg.norm_eps) * p["scale"]
     return y.to(x.dtype)
 
 
@@ -153,6 +153,8 @@ def embed(cfg, p, tokens):
         # sqrt(d) rounded to the dtype first, as the JAX package does; a
         # Python scalar, so no host-to-device copy
         x = x * float(torch.tensor(np.sqrt(cfg.d_model), dtype=dt(cfg)))
+    if cfg.embed_multiplier != 1.0:
+        x = x * cfg.embed_multiplier
     return x
 
 
@@ -162,6 +164,8 @@ def unembed(cfg, p, x):
     if cfg.logit_softcap > 0:
         c = cfg.logit_softcap
         logits = torch.tanh(logits / c) * c
+    if cfg.logits_scaling != 1.0:
+        logits = logits / cfg.logits_scaling
     return logits
 
 

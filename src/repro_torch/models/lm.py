@@ -101,7 +101,7 @@ def _layer_axes(cfg, spec: LayerSpec) -> dict:
     if spec.kind == "attn":
         a["mix"] = A.attn_axes(cfg, spec)
     elif spec.kind == "ssd":
-        a["mix"] = SSD.ssd_axes()
+        a["mix"] = SSD.ssd_axes(cfg)
     else:
         a["mix"] = R.rglru_axes()
     if spec.mlp == "dense":
@@ -250,12 +250,14 @@ def _layers(tree, n: int) -> list:
 
 # ------------------------------------------------------------------ block
 
-def _block(cfg, spec: LayerSpec, p, x, positions, cache, impl, enc_out=None):
-    """One layer; returns (x, the MoE aux loss or None)."""
+def _block(cfg, spec: LayerSpec, p, x, positions, cache, impl, enc_out=None,
+           extend=False):
+    """One layer; returns (x, the MoE aux loss or None).  Each branch is
+    scaled by cfg.residual_multiplier before it joins the stream."""
     h = L.norm(cfg, p["norm_in"], x)
     if spec.kind == "attn":
         mix, cache = A.attn_forward(cfg, spec, p["mix"], h, positions, cache,
-                                    impl)
+                                    impl, extend=extend)
         if spec.cross_attn:
             mix = mix + _cross(cfg, p["mix"], x, cache, enc_out, impl)
     elif spec.kind == "ssd":
@@ -264,14 +266,22 @@ def _block(cfg, spec: LayerSpec, p, x, positions, cache, impl, enc_out=None):
         mix, cache = R.rglru_forward(cfg, p["mix"], h, cache)
     # the residual stream stays in cfg.dtype (attention and the MoE
     # upcast to f32)
-    x = sh.constrain(x + mix.to(x.dtype), ("batch", "seq", "embed"))
+    x = sh.constrain(x + _branch(cfg, mix, x.dtype), ("batch", "seq", "embed"))
     aux = None
     if spec.mlp == "dense":
-        x = x + L.mlp(cfg, p["mlp"], L.norm(cfg, p["norm_mlp"], x)).to(x.dtype)
+        x = x + _branch(cfg, L.mlp(cfg, p["mlp"], L.norm(cfg, p["norm_mlp"], x)),
+                        x.dtype)
     elif spec.mlp == "moe":
         y, aux = M.moe_forward(cfg, p["moe"], L.norm(cfg, p["norm_mlp"], x))
-        x = x + y.to(x.dtype)
+        x = x + _branch(cfg, y, x.dtype)
     return sh.constrain(x, ("batch", "seq", "embed")), aux
+
+
+def _branch(cfg, y, dtype):
+    """A residual branch's output as it joins the stream."""
+    if cfg.residual_multiplier != 1.0:
+        y = y * cfg.residual_multiplier
+    return y.to(dtype)
 
 
 def _cross(cfg, p, x, cache, enc_out, impl):
@@ -308,13 +318,19 @@ def encode(cfg: ModelConfig, params, frames, impl="blockwise"):
 
 
 def hidden_states(cfg: ModelConfig, params, tokens, positions=None, caches=None,
-                  impl="blockwise", patches=None, frames=None, enc_out=None):
+                  impl="blockwise", patches=None, frames=None, enc_out=None,
+                  extend=False):
     """The trunk: (final-normed hidden states [B, P + S, d], the sum of
     the MoE layers' aux losses, f32); caches are written in place.
 
     patches: [B, P, d] stub patch embeddings put ahead of the scaled
     token embeddings (paligemma); frames: [B, T, d] stub frame embeddings
-    the encoder runs over, or enc_out, its output (whisper)."""
+    the encoder runs over, or enc_out, its output (whisper).
+    extend: the caches already hold every position before `positions`
+    (a sequence's earlier tokens), and the tokens continue it: attention
+    reads the cached keys too (a prefill without it attends only over its
+    own tokens), and the recurrent layers start from their cached state
+    (as they always do)."""
     x = L.embed(cfg, params["embed"], tokens)
     if patches is not None:
         x = torch.cat([patches.to(x.dtype), x], dim=1)
@@ -330,7 +346,7 @@ def hidden_states(cfg: ModelConfig, params, tokens, positions=None, caches=None,
             for i, spec in enumerate(pattern):
                 c = None if caches is None else _at(caches[f"g{gi}"][i], r)
                 x, a = _block(cfg, spec, layers[i][r], x, positions, c, impl,
-                              enc_out)
+                              enc_out, extend)
                 if a is not None:
                     aux = aux + a
     return L.norm(cfg, params["final_norm"], x), aux

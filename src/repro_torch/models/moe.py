@@ -32,7 +32,13 @@ Where the JAX package and torch differ:
 
 Capacity is ``max(8, ceil8(ceil(T*K/E*cf)))`` over every token of the
 call (T = B*S), so rows of one call compete for it: a caller must not
-split a call's tokens across calls.
+split a call's tokens across calls.  With ``cfg.moe_dropless`` (the
+published routing of granite-4.0-h) no pair is dropped: a call of at
+most ``SYNC_FREE_TOKENS`` tokens takes C = T (an expert gets at most one
+pair a token, and no count is read back), a larger one the largest
+expert's load, read back once a layer.  Inside ``counting_drops(sink)``
+every MoE layer adds the pairs it dropped to the device scalar ``sink``
+(no host read).
 
 The shard-map expert path (``_moe_shard_map``, taken under a mesh context
 whose rules set ``moe_shard_map``): torch has no ``shard_map``, so it is
@@ -56,6 +62,7 @@ collectives record no gradient.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 
@@ -67,6 +74,22 @@ from repro_torch.models import sharding as sh
 from repro_torch.pytree import tree_map
 
 
+SYNC_FREE_TOKENS = 64
+_drops = None       # counting_drops' sink while one is open
+
+
+@contextlib.contextmanager
+def counting_drops(sink: torch.Tensor):
+    """Within the block, every MoE layer adds its dropped (token, expert)
+    pairs to `sink`, an int64 scalar on the tokens' device."""
+    global _drops
+    prev, _drops = _drops, sink
+    try:
+        yield sink
+    finally:
+        _drops = prev
+
+
 def init_moe(cfg, gen) -> dict:
     d, f, e = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
     s_in, s_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f)
@@ -75,8 +98,7 @@ def init_moe(cfg, gen) -> dict:
          "wg": L.normal(gen, (e, d, f), L.dt(cfg), s_in),
          "wo": L.normal(gen, (e, f, d), L.dt(cfg), s_out)}
     if cfg.n_shared_experts:
-        p["shared"] = L.init_mlp(cfg, gen,
-                                 d_ff=cfg.moe_d_ff * cfg.n_shared_experts)
+        p["shared"] = L.init_mlp(cfg, gen, d_ff=cfg.shared_width)
     return p
 
 
@@ -118,7 +140,18 @@ def route(p, xf) -> torch.Tensor:
     return torch.softmax(xf.float() @ p["router"], dim=-1)
 
 
-def dispatch(probs, K: int, capacity_factor: float = 1.25) -> Dispatch:
+def dropless_capacity(eidx, E: int) -> int:
+    """The least capacity that drops no pair of `eidx` [T, K]: T for a
+    call of at most SYNC_FREE_TOKENS tokens (K distinct experts a token),
+    else the largest expert's load (a host read)."""
+    T = eidx.shape[0]
+    if T <= SYNC_FREE_TOKENS:
+        return max(T, 1)
+    return max(int(expert_counts(eidx, E).max()), 1)
+
+
+def dispatch(probs, K: int, capacity_factor: float = 1.25,
+             dropless: bool = False) -> Dispatch:
     T, E = probs.shape
     srt, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate, eidx = srt[:, :K], idx[:, :K]
@@ -127,7 +160,8 @@ def dispatch(probs, K: int, capacity_factor: float = 1.25) -> Dispatch:
     for k in range(1, K):
         total = total + gate[:, k]
     gate = gate / torch.clamp(total[:, None], min=1e-9)
-    C = capacity(T, K, E, capacity_factor)
+    C = dropless_capacity(eidx, E) if dropless else \
+        capacity(T, K, E, capacity_factor)
     fe = eidx.reshape(T * K)
     order = torch.sort(fe, stable=True).indices
     se = fe[order]
@@ -228,7 +262,9 @@ def _local_expert_ffn(cfg, p, xf, capacity_factor: float = 1.25):
     T, d = xf.shape
     E, K = cfg.n_experts, cfg.top_k
     probs = route(p, xf)
-    dsp = dispatch(probs, K, capacity_factor)
+    dsp = dispatch(probs, K, capacity_factor, cfg.moe_dropless)
+    if _drops is not None:
+        _drops.add_((~dsp.keep).sum())
     y = combine(experts(cfg, p, xf, dsp), dsp)
     if cfg.n_shared_experts:
         y = y + L.mlp(cfg, p["shared"], xf)

@@ -6,7 +6,13 @@ Prefill runs the chunked SSD algorithm: a within-chunk quadratic
 recurrence a Python loop over the chunks (the JAX package's lax.scan).
 Decode (S == 1 with a cache) is the O(1) recurrent step on a
 ``[B, H, P, N]`` f32 state.  SiLU comes before the conv and dt, decay and
-state math is f32, as in the JAX package.
+state math is f32, as in the JAX package.  With ``cfg.ssd_block ==
+"mamba2"`` the block is the published one instead: the conv (with its
+bias) comes first and SiLU after it, and ``y * silu(z)`` goes through a
+gated RMSNorm (over all of d_inner: one group) with a learned weight
+``norm`` before out_proj.  A prefill over a cache that holds a
+sequence's state (its conv tail and SSD state) continues that sequence:
+the chunked scan starts from the cached state.
 
 The JAX package's four-operand einsums are contracted pairwise here, the
 last step of each a batched matmul, so nothing of shape ``[B, c, i, j, H,
@@ -29,7 +35,7 @@ def init_ssd(cfg, gen) -> dict:
     d = cfg.d_model
     di, ns, nh = cfg.ssd_d_inner, cfg.ssd_state, cfg.ssd_n_heads
     dev = gen.device
-    return {
+    p = {
         "in_proj": L.normal(gen, (d, 2 * di + 2 * ns + nh), L.dt(cfg),
                             1.0 / math.sqrt(d)),
         "conv": L.init_conv1d(gen, cfg.conv_width, di + 2 * ns),
@@ -38,19 +44,35 @@ def init_ssd(cfg, gen) -> dict:
         "D": torch.ones(nh, dtype=torch.float32, device=dev),
         "out_proj": L.normal(gen, (di, d), L.dt(cfg), 1.0 / math.sqrt(di)),
     }
+    if cfg.ssd_block == "mamba2":
+        p["norm"] = torch.ones(di, dtype=torch.float32, device=dev)
+    return p
 
 
-def ssd_axes() -> dict:
+def ssd_axes(cfg) -> dict:
     """init_ssd's logical axes."""
-    return {"in_proj": ("embed", "mlp"), "conv": L.conv1d_axes(),
-            "A_log": (None,), "dt_bias": (None,), "D": (None,),
-            "out_proj": ("mlp", "embed")}
+    a = {"in_proj": ("embed", "mlp"), "conv": L.conv1d_axes(),
+         "A_log": (None,), "dt_bias": (None,), "D": (None,),
+         "out_proj": ("mlp", "embed")}
+    if cfg.ssd_block == "mamba2":
+        a["norm"] = ("mlp",)
+    return a
 
 
 def _split(cfg, zxbcdt):
     di, ns = cfg.ssd_d_inner, cfg.ssd_state
     return (zxbcdt[..., :di], zxbcdt[..., di:2 * di + 2 * ns],
             zxbcdt[..., 2 * di + 2 * ns:])
+
+
+def _gate(cfg, p, y, z, dtype):
+    """y * silu(z) in f32 and, in the published block, its gated RMSNorm
+    times the learned weight; cast to `dtype`."""
+    y = y * F.silu(z.float())
+    if cfg.ssd_block == "mamba2":
+        ms = y.square().mean(-1, keepdim=True)
+        y = y * torch.rsqrt(ms + cfg.norm_eps) * p["norm"]
+    return y.to(dtype)
 
 
 def ssd_forward(cfg, p, u, cache=None):
@@ -61,7 +83,11 @@ def ssd_forward(cfg, p, u, cache=None):
                       cfg.ssd_headdim)
     z, xbc, dt_raw = _split(cfg, u @ p["in_proj"])
     conv_state = cache["conv"] if cache is not None else None
-    xbc, new_conv = L.causal_conv1d(p["conv"], F.silu(xbc), conv_state)
+    if cfg.ssd_block == "mamba2":
+        xbc, new_conv = L.causal_conv1d(p["conv"], xbc, conv_state)
+        xbc = F.silu(xbc)
+    else:
+        xbc, new_conv = L.causal_conv1d(p["conv"], F.silu(xbc), conv_state)
     x, Bm, Cm = xbc[..., :di], xbc[..., di:di + ns], xbc[..., di + ns:]
     dt = L.softplus(dt_raw.float() + p["dt_bias"])                  # [B,S,H]
     A = -torch.exp(p["A_log"])                                       # [H]
@@ -75,7 +101,7 @@ def ssd_forward(cfg, p, u, cache=None):
         st = cache["state"] * a_t[:, :, None, None] + dBx
         y = (st @ Cm[:, 0].float()[:, None, :, None])[..., 0]        # [B,H,P]
         y = y + p["D"][None, :, None] * xh[:, 0].float()
-        y = (y.reshape(B, 1, di) * F.silu(z.float())).to(u.dtype)
+        y = _gate(cfg, p, y.reshape(B, 1, di), z, u.dtype)
         cache["conv"].copy_(new_conv)
         cache["state"].copy_(st)
         cache["pos"].add_(1)
@@ -140,7 +166,7 @@ def ssd_forward(cfg, p, u, cache=None):
     del t, prev
     y = y + p["D"][:, None] * xc
     y = y.reshape(B, nchunk * ck, di)[:, :S]
-    y = (y * F.silu(z.float())).to(u.dtype)
+    y = _gate(cfg, p, y, z, u.dtype)
     if cache is not None:
         cache["conv"].copy_(new_conv)
         cache["state"].copy_(carry)

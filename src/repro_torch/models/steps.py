@@ -161,6 +161,20 @@ def make_prefill_step(cfg: ModelConfig, impl: str = "blockwise"):
     return prefill
 
 
+def make_extend_step(cfg: ModelConfig, impl: str = "blockwise"):
+    """extend(params, tokens [B, S], caches, positions [S]) -> (last_logits
+    [B, V], caches): the tokens continue the sequences the caches hold
+    (every position before `positions`, an int32 tensor on the tokens'
+    device); one token takes the decode path."""
+
+    def extend(params, tokens, caches, positions):
+        x, _ = lm.hidden_states(cfg, params, tokens, positions=positions,
+                                caches=caches, impl=impl, extend=True)
+        return L.unembed(cfg, params["embed"], x[:, -1]), caches
+
+    return extend
+
+
 def make_decode_step(cfg: ModelConfig, impl: str = "blockwise"):
     """decode(params, caches, token [B, 1], pos) -> (logits [B, V], caches).
     pos: [] (synchronized batch) or [B] (ragged continuous batching), an

@@ -257,8 +257,14 @@ class SearchClient:
         # sim_cache_*, serving_*), and the tracer its span totals
         # (trace_span_*): rebind them onto this client's registry so
         # metrics() renders one coherent snapshot
-        if self.registry is not None and hasattr(sim, "bind_metrics"):
-            sim.bind_metrics(self.registry)
+        # the LM path's env and backend keep spans and counters of their
+        # own (sim.lm): they join the client's tracer and registry too
+        for part, bind, on in ((sim, "bind_metrics", self.registry),
+                               (env, "bind_metrics", self.registry),
+                               (sim, "bind_tracer", self.tracer),
+                               (env, "bind_tracer", self.tracer)):
+            if on is not None and hasattr(part, bind):
+                getattr(part, bind)(on)
         if self.registry is not None and self.tracer is not None:
             self.tracer.bind_metrics(self.registry)
         self.core = SchedulerCore(

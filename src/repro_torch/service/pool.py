@@ -624,6 +624,7 @@ class ArenaPool:
                 res.terminal = True
                 self._finish(res)
                 continue
+            self._root_changed(None, s0)
             self.exec.reset_slot(g, na)
             self.sts[g].flush(s0)
             self.slots[g] = _Slot(req=req, res=res, root_state=s0,
@@ -698,6 +699,7 @@ class ArenaPool:
                 # session spanning it must scatter + close first
                 self._invalidate_session(g)
                 self._mark_cancelled(slot.res, reason)
+                self._root_changed(slot.root_state, None)
                 self._finish(slot.res)
                 self.slots[g] = None
                 return True
@@ -1460,6 +1462,7 @@ class ArenaPool:
         new_state, reward, term = env.step(slot.root_state, a)
         slot.moves_done += 1
         last = bool(term) or slot.moves_done >= slot.req.moves
+        self._root_changed(slot.root_state, None if last else new_state)
         snap = old2new = None
         if self.reuse_subtree and not last:
             counts, _, old2new = self.exec.reroot_slot(g, a, trace, tid)
@@ -1503,6 +1506,14 @@ class ArenaPool:
             with trace.span("st-write", cat="commit", tid=tid):
                 self.sts[g].flush(new_state)
             slot.prev_size = 1
+
+    def _root_changed(self, old, new) -> None:
+        """Tell an env that keeps state per search root (sim.lm's root
+        snapshots: ``root_changed``) that a root was admitted (old None),
+        moved by a commit, or left its slot (new None)."""
+        hook = getattr(self.env, "root_changed", None)
+        if hook is not None:
+            hook(old, new)
 
     def _finish(self, res: SearchResult):
         res.done_at = time.perf_counter()

@@ -104,6 +104,10 @@ class SimServer:
         self.bind_metrics(metrics)
 
     def bind_metrics(self, metrics) -> None:
+        """This server's telemetry into `metrics`, and the backend's where
+        it keeps its own (``bind_metrics``)."""
+        if metrics is not None and hasattr(self.backend, "bind_metrics"):
+            self.backend.bind_metrics(metrics)
         reg = NULL_REGISTRY if metrics is None else metrics
         self._m_batches = reg.counter(
             "sim_server_batches_total", "microbatches dispatched")
@@ -117,6 +121,11 @@ class SimServer:
         self._m_partial = reg.counter(
             "sim_server_partial_flushes_total",
             "microbatches flushed below max_batch (window close / collect)")
+
+    def bind_tracer(self, tracer) -> None:
+        """The backend's spans into `tracer`, where it records any."""
+        if hasattr(self.backend, "bind_tracer"):
+            self.backend.bind_tracer(tracer)
 
     # ---- protocol: non-blocking split ----
     def submit(self, states: np.ndarray,

@@ -386,6 +386,30 @@ def test_flash_kernel_reads_fused_projection_views(dtype):
 
 
 @pytest.mark.cuda
+def test_flash_kernel_takes_the_configured_scale():
+    """granite-4.0-h-small's prefill shape (B=1, S=4,096, 32 query heads
+    over 8 KV heads of 128, bf16) at its attention_multiplier 1/128, not
+    1/sqrt(128): the kernel against blockwise_attention at that scale,
+    computed in f32 on the same bf16 inputs (half a bf16 ulp of rounding
+    on top of the f32 tolerance, FA.BF16_ROUND_TOL)."""
+    need_cuda()
+    from repro_torch.models.attention import blockwise_attention
+
+    q, k, v = qkv(((1, 4096, 32, 128), (1, 4096, 8, 128), (1, 4096, 8, 128)),
+                  torch.bfloat16, 9)
+    n = FA.launches
+    out = FA.flash_attention(q, k, v, causal=True, scale=1 / 128)
+    want = blockwise_attention(q.float(), k.float(), v.float(), causal=True,
+                               scale=1 / 128)
+    torch.cuda.synchronize()
+    assert FA.launches == n + 1
+    atol, rtol = FA.BF16_ROUND_TOL
+    torch.testing.assert_close(out.float(), want, atol=atol, rtol=rtol)
+    default = FA.flash_attention(q, k, v, causal=True)
+    assert (default.float() - want).abs().max() > 100 * atol
+
+
+@pytest.mark.cuda
 def test_flash_kernel_refuses_misaligned_bf16_stride():
     """A seq stride of 2*64 + 4 elements (264 bytes) is not a multiple of
     16 bytes: the bf16 kernel's TMA cannot read it, so the wrapper raises

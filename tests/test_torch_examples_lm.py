@@ -148,7 +148,16 @@ def test_train_lm_run_matches_jax_and_resumes(tmp_path):
 
 
 def test_cfg_100m_matches_jax():
+    """Every field of the JAX package's config has the port's value, and
+    each field the port adds (granite-4.0-h's multipliers, NoPE, the
+    shared-expert width, dropless routing, the published Mamba-2 block)
+    holds its default, the JAX package's behaviour."""
     jcfg = jax_example("train_lm").CFG_100M
-    assert dataclasses.asdict(train_lm.CFG_100M) == dataclasses.asdict(jcfg)
+    port, jax_fields = dataclasses.asdict(train_lm.CFG_100M), \
+        dataclasses.asdict(jcfg)
+    assert {k: port[k] for k in jax_fields} == jax_fields
+    added = {f.name: f.default for f in dataclasses.fields(train_lm.CFG_100M)
+             if f.name not in jax_fields}
+    assert {k: port[k] for k in added} == added
     assert param_count(train_lm.CFG_100M) == jparam_count(jcfg)
     assert 90e6 < param_count(train_lm.CFG_100M) < 110e6
