@@ -50,9 +50,11 @@ backend's batcher adds ``lm-admit``, ``lm-decode`` and ``lm-logprob``.
 Counters (``bind_metrics``): serving.batcher's ``LMCounters``.
 
 On the card, ``cuda_graphs=n`` replays CUDA graphs of the suffix
-forwards of 1..n tokens (serving.batcher's ``Extender``) and of the
-backend's decode step, captured at construction: a B=1 forward of a
-large model is otherwise bound by the host's op launches.
+forwards of 1..n tokens (serving.batcher's ``Extender``), of the
+backend's batched admissions (one forward of a wave's rows of one
+suffix length, at the pool's width) and of its decode step, captured at
+construction: a B=1 forward of a large model is otherwise bound by the
+host's op launches.
 
 Determinism: the batcher's decode is greedy and its pool schedule is a
 pure function of the submitted request stream, so evaluate() is
@@ -307,8 +309,9 @@ class LMContinuationBackend:
     admit as earlier continuations finish, so a batch of B rows costs
     ceil(B / pool_size) waves of `horizon` decode steps.  Its prefills
     use the env's attention ``impl``; a row whose state extends a live
-    root snapshot is admitted from it.  Equal rows of one batch (a
-    microbatch's padding) are decoded once."""
+    root snapshot is admitted from it, a wave's such rows one forward a
+    suffix length.  Equal rows of one batch (a microbatch's padding) are
+    decoded once."""
 
     def __init__(self, env: LMTreeEnv, pool_size: int = 8, metrics=None):
         self.env = env

@@ -40,7 +40,10 @@ autograd raising before it launches.  The straggler-masked superstep
 (tests/test_mcts_system.py) on the cuda executor against the reference.
 The launch tooling on an NCCL world of one: collectives bit for bit with
 their recorded bytes, the SMOKE MoE shard-map path identical to dense on
-the card's 1x1 mesh, and a restore onto that mesh as DTensors.
+the card's 1x1 mesh, and a restore onto that mesh as DTensors.  The LM
+pool's batched admission at granite-4.0-h-small's SMOKE shape in bf16:
+its B-row graphs against the eager B-row extend and a padded group
+against a full one, bit for bit, and no dummy row reaching a slot.
 """
 
 import numpy as np
@@ -1205,6 +1208,107 @@ def test_moe_model_on_card_matches_cpu(arch):
     assert FA.launches - n == (cfg.n_layers if cfg.attn_impl == "gqa" else 0)
     torch.testing.assert_close(gl.cpu(), cl, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(ga.cpu(), ca, atol=1e-5, rtol=1e-5)
+
+
+def _granite_bf16_rows():
+    """granite-4.0-h-small's SMOKE shape in bf16 on the card: its params,
+    two prefixes (13 and 21 tokens, B=1 caches of 48) and 16 suffixes of
+    4 tokens."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import lm, steps
+    from repro_torch.serving import batcher as B
+
+    cfg = dataclasses.replace(configs.get_config("granite-4.0-h-small",
+                                                 smoke=True), dtype="bfloat16")
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0), "cuda")
+    rng = np.random.default_rng(4)
+    pre = []
+    for n in (13, 21):
+        toks = rng.integers(0, cfg.vocab, n)
+        caches = lm.init_caches(cfg, 1, 48, "cuda")
+        logits = steps.make_prefill_step(cfg, "naive")(
+            params, torch.as_tensor(toks, device="cuda")[None], caches)[0]
+        pre.append(B.PrefixState(toks, caches,
+                                 logits[0].float().cpu().numpy()))
+    return cfg, params, pre, rng.integers(0, cfg.vocab, (16, 4))
+
+
+def _leaves(caches, rows, upto=None):
+    """Rows `rows` of every cache leaf (of k/v the first `upto`
+    positions: what the rows hold), cloned."""
+    return [(t[:, rows, :upto] if name in ("k", "v") else t[:, rows]).clone()
+            for per_pos in caches.values() for c in per_pos
+            for name, t in c.items() if name != "pos"]
+
+
+@pytest.mark.cuda
+def test_batched_admission_graphs_on_card():
+    """The pool's B-row extend (granite's SMOKE shape, bf16, 16 rows from
+    two prefixes): each graph replay equals the eager B-row extend bit for
+    bit (logits and scratch); a group of 5 padded with 11 dummies gives
+    its rows' logits and caches of the full group of 16 bit for bit; and
+    a batcher admitting 5 rows through the padded graph leaves its 11
+    other slots as they were."""
+    need_cuda()
+    from repro_torch.serving import batcher as B
+
+    cfg, params, pre, suffixes = _granite_bf16_rows()
+    counters = B.LMCounters("cuda")
+    graphed = B.Extender(cfg, params, 48, "naive", counters, 4, rows=16)
+    eager = B.Extender(cfg, params, 48, "naive", counters, rows=16)
+    assert sorted(graphed.graphs) == [1, 2, 3, 4]
+    for S in (1, 2, 3, 4):
+        runs = [(pre[0].caches, 13, suffixes[:8, :S]),
+                (pre[1].caches, 21, suffixes[8:, :S])]
+        full = graphed.run_rows(runs).clone()
+        assert torch.equal(full, eager.run_rows(runs)), S
+        for rows, n in ((list(range(8)), 13), (list(range(8, 16)), 21)):
+            for a, b in zip(_leaves(graphed.scratch, rows, n + S),
+                            _leaves(eager.scratch, rows, n + S)):
+                assert torch.equal(a, b), S
+        kept = [_leaves(graphed.scratch, [0, 1, 2], 13 + S),
+                _leaves(graphed.scratch, [8, 9], 21 + S)]
+        part = graphed.run_rows([(pre[0].caches, 13, suffixes[:3, :S]),
+                                 (pre[1].caches, 21, suffixes[8:10, :S])])
+        assert torch.equal(part, full[[0, 1, 2, 8, 9]]), S
+        for rows, n, want in (([0, 1, 2], 13, kept[0]), ([3, 4], 21, kept[1])):
+            for a, b in zip(_leaves(graphed.scratch, rows, n + S), want):
+                assert torch.equal(a, b), S
+    b = B.ContinuousBatcher(
+        cfg, params, pool_size=16, max_seq=48, impl="naive",
+        extender=B.Extender(cfg, params, 48, "naive", B.LMCounters("cuda"),
+                            4), cuda_graphs=True)
+    assert sorted(b.group_extender.graphs) == [1, 2, 3, 4]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for per_pos in b.caches.values():
+        for c in per_pos:
+            for name, t in c.items():
+                if name != "pos":
+                    t.copy_(torch.randn(t.shape, generator=gen, device="cuda"))
+    free = [2, 5, 6, 11, 12]
+    others = [s for s in range(16) if s not in free]
+    for slot in others:
+        b.slots[slot] = B.Request(uid=-1, prompt=np.zeros(5, np.int32))
+    before = _leaves(b.caches, others)
+    for i, slot in enumerate(free):
+        p = pre[i % 2]
+        b.submit(B.Request(uid=i, prompt=np.concatenate(
+            [p.tokens, suffixes[i, :2]]).astype(np.int32), prefix=p))
+    b._admit()
+    assert [b.slots[s].uid for s in free] == [0, 1, 2, 3, 4]
+    for x, y in zip(_leaves(b.caches, others), before):
+        assert torch.equal(x, y)
+    # the admitted rows hold what a B-row graph of these five gives
+    want = graphed.run_rows([(pre[0].caches, 13, suffixes[[0, 2, 4], :2]),
+                             (pre[1].caches, 21, suffixes[[1, 3], :2])])
+    assert [b.slots[s].tokens[0] for s in (2, 6, 12, 5, 11)] == \
+        torch.argmax(want, -1).tolist()
+    for rows, n, mine in (([2, 6, 12], 13, [0, 1, 2]), ([5, 11], 21, [3, 4])):
+        for x, y in zip(_leaves(b.caches, rows, n + 2),
+                        _leaves(graphed.scratch, mine, n + 2)):
+            assert torch.equal(x, y)
 
 
 @pytest.mark.cuda

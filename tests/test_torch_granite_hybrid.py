@@ -164,6 +164,56 @@ def test_snapshot_path_against_a_forward_from_scratch(model):
     assert snap.live_snapshots == 0
 
 
+def test_batched_admission_against_a_forward_from_scratch(model,
+                                                          monkeypatch):
+    """A wave of 16 continuations from two root snapshots (30 and 21
+    tokens), two a root and suffix length 1-4, admits as one extend
+    forward of 4 rows a suffix length: each row's first logits against
+    the reference's forward of its whole prompt, and the rows'
+    continuation values against ones prefilled whole."""
+    cfg, dims, p = model
+    snap, plain = _envs(cfg, p, tokens(cfg, 30, seed=5))
+    for env in (snap, plain):
+        env.register(8, tokens(cfg, 21, seed=6))
+    roots = [snap.initial_state(7), snap.initial_state(8)]
+    for s in roots:
+        snap.root_changed(None, s)
+    rng = np.random.default_rng(7)
+    states = []
+    for S in (1, 2, 3, 4):
+        for root in roots:
+            for _ in range(2):
+                s, n = root.copy(), int(root[0])
+                s[1 + n:1 + n + S] = rng.integers(0, cfg.vocab, S)
+                s[0] = n + S
+                states.append(s)
+    states = np.stack(states)
+    reg = MetricsRegistry()
+    got, _ = LMContinuationBackend(snap, pool_size=16,
+                                   metrics=reg).evaluate(states)
+    want, _ = LMContinuationBackend(plain, pool_size=16).evaluate(states)
+    np.testing.assert_allclose(got, want, atol=MIXER_TOL, rtol=0)
+    assert reg.get("lm_admit_forwards_total").value == 4
+    assert reg.get("lm_admit_forward_rows_total").value == 16
+    assert reg.get("moe_tokens_dropped_total").value == 0
+
+    from repro_torch.serving import batcher as B
+    monkeypatch.setattr(B, "_logprob", lambda row, tok: np.array(row))
+    b = B.ContinuousBatcher(cfg, p, pool_size=16, max_seq=64, impl="naive",
+                            record_logprobs=True, extender=snap.extender)
+    prompts = [snap.tokens(s) for s in states]
+    for uid, toks in enumerate(prompts):
+        b.submit(B.Request(uid=uid, prompt=toks.astype(np.int32),
+                           max_new_tokens=1, prefix=snap.snapshot_of(toks)))
+    b._admit()
+    first = {r.uid: r.logprobs[0] for r in b.slots}
+    want = ref.logits_at(dims, SEED, prompts,
+                         [[len(t) - 1] for t in prompts], "cpu")
+    for uid, row in first.items():
+        np.testing.assert_allclose(row, want[uid][0].numpy(),
+                                   atol=LOGITS_TOL, rtol=0, err_msg=str(uid))
+
+
 def test_snapshots_refuse_windowed_attention():
     cfg = configs.get_config("mixtral-8x22b", smoke=True)
     p = lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
